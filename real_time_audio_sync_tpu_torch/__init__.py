@@ -1,0 +1,24 @@
+"""real_time_audio_sync_tpu_torch — the PyTorch/CUDA port of
+``real_time_audio_sync_tpu``, for NVIDIA Hopper cards (H100).
+
+It mirrors the JAX package's layout and public names, and imports neither
+JAX nor the JAX package (whose ``__init__`` imports jax):
+
+- ``features``  — the chroma frontend: framing, the real DFT as two
+  matmuls, the in-repo chroma filterbank, L2 normalization.
+- ``ops``       — the hand-written CUDA kernels (sources in ``csrc/``,
+  built with ``nvcc`` at first use) beside their plain PyTorch versions.
+- ``models``    — the fused streaming OTW/LiveNote/LiveNoteV2 engine.
+- ``streaming`` — hop framing and the live ``ScoreFollower``.
+- ``eval``      — beat ground truth, the path scorer, field logs and the
+  synthetic corpus.
+- ``utils``     — wav IO, profiling, and state conversion to and from the
+  JAX engine's layout.
+
+Every engine and the follower take an explicit ``device``: a kernel runs
+where its tensors live, and nothing falls back from the card to the CPU.
+"""
+
+from real_time_audio_sync_tpu_torch import numerics  # noqa: F401  (TF32 off, process-wide)
+
+__version__ = "0.1.0"

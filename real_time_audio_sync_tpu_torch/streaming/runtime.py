@@ -1,0 +1,209 @@
+"""Host-side streaming runtime: hop framing + score following.
+
+Mirrors the live apps' audio plumbing (livenote_live.py:161-209): incoming
+mic buffers accumulate; every time a full ``fft_len`` window is available a
+chroma column is extracted (on the follower's device) and fed to the
+engine, then the buffer advances by ``hop_size``.  The ``ScoreFollower``
+adds the beat/rehearsal-label lookup against the reference's ground-truth
+CSV (livenote_live.py:198,211-227) and field-log recording
+(livenote_live.py:138-154).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import time
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from real_time_audio_sync_tpu_torch.config import FFT_LEN, FRAME_PERIOD_SEC, HOP_SIZE
+from real_time_audio_sync_tpu_torch.eval.ground_truth import GroundTruth, get_beat_and_label
+from real_time_audio_sync_tpu_torch.eval.logs import write_field_log
+from real_time_audio_sync_tpu_torch.streaming.writer import combine_buffers
+from real_time_audio_sync_tpu_torch.utils.profiling import EMACpuLoad, LatencyRecorder
+
+
+class HopFramer:
+    """Accumulates raw sample buffers; emits fft_len windows every hop_size
+    samples (livenote_live.py:164-168,185-208 cadence)."""
+
+    def __init__(self, fft_len: int = FFT_LEN, hop_size: int = HOP_SIZE):
+        self.fft_len = fft_len
+        self.hop_size = hop_size
+        self._pending = np.empty(0, np.float32)
+
+    def push(self, frames) -> List[np.ndarray]:
+        self._pending = combine_buffers([self._pending, frames])
+        out = []
+        while len(self._pending) >= self.fft_len:
+            out.append(self._pending[: self.fft_len].copy())
+            self._pending = self._pending[self.hop_size :]
+        return out
+
+
+@dataclasses.dataclass
+class FollowEvent:
+    """One engine update: where we are in the score."""
+
+    live_frame: int
+    ref_frame: int
+    beat: Optional[float]
+    label: Optional[str]
+    time_sec: float  # position in the reference, seconds
+    stopped: bool = False
+
+
+class ScoreFollower:
+    """Follows a live performance against a reference recording.
+
+    Feed raw audio via :meth:`receive_audio` (returns follow events), read
+    ``.path``; ``"stop"`` is handled internally; recording start/stop
+    mirrors the 'r' key toggle (on stop a field log in the reference's
+    exact format is written, livenote_live.py:150-154).
+
+    ``fused=True`` runs the fused K-insert engine on ``device``: chroma and
+    alignment both run there, and the score position comes from the polled
+    status vector, never from a device synchronization.
+    """
+
+    def __init__(
+        self,
+        ref_wav: str,
+        engine: str = "otw",
+        params: Optional[dict] = None,
+        log_dir: Optional[str] = None,
+        *,
+        fused: bool = False,
+        device,
+    ):
+        from real_time_audio_sync_tpu_torch.eval.corpus import DEFAULT_PARAMS
+        from real_time_audio_sync_tpu_torch.features.chroma import wav_to_chroma
+        from real_time_audio_sync_tpu_torch.models.fused_streaming import FusedStreamingEngine
+        from real_time_audio_sync_tpu_torch.models.online_core import ENGINE_OVERRIDES
+
+        if not fused:
+            raise NotImplementedError(
+                "ScoreFollower(fused=False): the XLA-engine modes (sync, use_blocks, pipelined) "
+                "are not ported yet: ROADMAP.md Queue 1, item 1")
+        if engine not in ("otw", "livenote", "livenote_v2"):
+            # the follower feeds plain chroma; the diff-feature engine
+            # (livenote_v2_diff) belongs to the corpus harness, not the live app
+            raise ValueError(f"unknown follower engine {engine!r}")
+        self.ref_wav = ref_wav
+        self.engine_name = engine
+        self.params = dict(params or DEFAULT_PARAMS)
+        self.device = torch.device(device)
+
+        ref_seq = wav_to_chroma(ref_wav, device=self.device)
+        self.engine = FusedStreamingEngine(
+            ref_seq, self.params, cfg_overrides=ENGINE_OVERRIDES[engine], device=self.device)
+
+        csv_path = ref_wav[:-4] + ".csv"
+        self.ground_truth = GroundTruth.from_csv(csv_path) if os.path.exists(csv_path) else None
+
+        self.framer = HopFramer()
+        self.meter = AudioMeter()
+        self.latency = LatencyRecorder(audio_seconds_per_event=FRAME_PERIOD_SEC)
+        self.cpu_load = EMACpuLoad()
+
+        self.log_dir = log_dir
+        self.recording = False
+        self.stopped = False
+        self._log_path: Optional[str] = None
+
+    # -- 'r' key toggle (livenote_live.py:145-154) --------------------------
+    def start(self) -> None:
+        self.recording = True
+
+    def stop(self) -> Optional[str]:
+        """Stop following; write the path log if a log_dir was configured."""
+        self.recording = False
+        if self.engine.flush() == "stop":
+            self.stopped = True
+        if self.log_dir:
+            os.makedirs(self.log_dir, exist_ok=True)
+            self._log_path = os.path.join(
+                self.log_dir, f"{self.engine_name}_test_live_{time.time()}.txt"
+            )
+            band = self.params.get("c", self.params.get("search_band_width", 0))
+            write_field_log(
+                self._log_path,
+                self.ref_wav,
+                [
+                    ("fft_len", FFT_LEN),
+                    ("hop_size", HOP_SIZE),
+                    ("search_band_width", band),
+                    ("max_run_count", self.params.get("max_run_count", 0)),
+                ],
+                self.path,
+            )
+        return self._log_path
+
+    # -- audio input (livenote_live.py:161-209) ------------------------------
+    def receive_audio(self, frames) -> List[FollowEvent]:
+        t0 = time.perf_counter()
+        self.meter.update(frames)
+        events: List[FollowEvent] = []
+        if self.recording and not self.stopped:
+            windows = self.framer.push(frames)
+            if windows:
+                events = self._process(windows)
+        self.cpu_load.update(time.perf_counter() - t0)
+        return events
+
+    def _process(self, windows: List[np.ndarray]) -> List[FollowEvent]:
+        from real_time_audio_sync_tpu_torch.features.chroma import chroma_frames
+
+        frames = torch.from_numpy(np.stack(windows)).to(device=self.device, dtype=torch.float32)
+        cols = chroma_frames(frames)  # (12, T) on the follower's device
+        # columns go one at a time to the adaptive feed: dispatched at once
+        # while the pipeline has room, coalesced only under saturation; the
+        # follow event reports the newest completed status (== path[-1])
+        self.latency.start()
+        status = None
+        for k in range(cols.shape[1]):
+            status = self.engine.feed(cols[:, k])
+            if status == "stop":
+                break
+        self.latency.stop()
+        if status != "stop":
+            status = self.engine.poll()  # non-blocking opportunistic read
+        if status == "stop":
+            self.stopped = True
+        return [self._event_from_status()]
+
+    def _event_from_status(self) -> FollowEvent:
+        """Follow event from the engine's last polled status vector — no
+        device synchronization."""
+        lp = self.engine.last_point
+        if lp is None or lp[0] == 0:
+            return FollowEvent(0, 0, None, None, 0.0, self.stopped)
+        _, live_f, ref_f = lp
+        beat, label = (None, None)
+        if self.ground_truth is not None:
+            beat, label = get_beat_and_label(ref_f, self.ground_truth)
+        return FollowEvent(
+            int(live_f), int(ref_f), beat, label, ref_f * FRAME_PERIOD_SEC, self.stopped
+        )
+
+    @property
+    def path(self):
+        return self.engine.path
+
+
+class AudioMeter:
+    """RMS→dB input meter (livenote_live.py:171-177)."""
+
+    def __init__(self):
+        self.db = -96.0
+
+    def update(self, frames) -> float:
+        mono = np.asarray(frames)
+        if mono.size:
+            rms = np.sqrt(np.mean(mono ** 2))
+            rms = np.clip(rms, 1e-10, 1)
+            self.db = float(20 * np.log10(rms))
+        return self.db

@@ -1,0 +1,55 @@
+"""The port stands alone: it imports with JAX blocked, never pulls in the
+JAX package, and no source line of it imports either."""
+
+import pathlib
+import re
+import subprocess
+import sys
+
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+PORT = ROOT / "real_time_audio_sync_tpu_torch"
+
+_BLOCKED_IMPORT = """
+import pkgutil, sys
+sys.modules["jax"] = None  # any `import jax` now raises ImportError
+import real_time_audio_sync_tpu_torch as port
+for m in pkgutil.walk_packages(port.__path__, port.__name__ + "."):
+    __import__(m.name)
+import chip_smoke
+assert "real_time_audio_sync_tpu" not in sys.modules, "the JAX package was imported"
+assert not any(k == "jax" or k.startswith("jax.") for k in sys.modules if sys.modules[k] is not None)
+print("ok")
+"""
+
+
+def test_port_imports_with_jax_blocked():
+    proc = subprocess.run([sys.executable, "-c", _BLOCKED_IMPORT], cwd=ROOT, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("ok")
+
+
+@pytest.mark.parametrize("alone", [False, True])
+def test_chip_smoke_fails_without_a_card(tmp_path, alone):
+    """No CUDA device here: chip_smoke.py must exit non-zero and print no
+    result, both from the repository and copied into an empty directory."""
+    script = ROOT / "chip_smoke.py"
+    cwd = ROOT
+    if alone:
+        (tmp_path / "chip_smoke.py").write_text(script.read_text())
+        script, cwd = tmp_path / "chip_smoke.py", tmp_path
+    proc = subprocess.run([sys.executable, str(script)], cwd=cwd, capture_output=True, text=True, timeout=300)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout and '"kernels"' not in proc.stdout
+
+
+def test_no_source_line_imports_jax_or_the_jax_package():
+    pattern = re.compile(r"^\s*(import|from)\s+(jax\b|real_time_audio_sync_tpu\b(?!_torch))", re.M)
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    offenders = [str(p.relative_to(ROOT)) for p in files if pattern.search(p.read_text())]
+    assert not offenders, offenders

@@ -1,0 +1,154 @@
+"""The port's plain K-insert (``ops/otw_insert.insert_block_reference``)
+against the JAX Pallas kernel ``_pallas_insert_block`` run in interpret
+mode, launch by launch, with state carried through the converters of
+``utils/convert.py``.
+
+Tolerances: status, scalars, path and live history must be equal.  The
+window is held to rtol 1e-6 (atol 1e-7 for cells near zero): the port sums
+each 12-term cost sequentially over f while the JAX kernel reduces 128
+lanes as a tree, so a cost can differ by an ulp (~6e-8 for unit columns),
+and infinities/sentinels must match exactly.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
+
+from real_time_audio_sync_tpu.models.fused_streaming import FusedStreamingEngine as JaxEngine  # noqa: E402
+from real_time_audio_sync_tpu.ops.pallas_otw import _pallas_insert_block  # noqa: E402
+from real_time_audio_sync_tpu_torch.models.online_core import ENGINE_OVERRIDES, OnlineConfig  # noqa: E402
+from real_time_audio_sync_tpu_torch.ops import otw_insert  # noqa: E402
+from real_time_audio_sync_tpu_torch.utils.convert import otw_state_from_jax, otw_state_to_jax  # noqa: E402
+
+from tests.test_online import _make_pair, _unit_cols  # noqa: E402
+
+
+@pytest.fixture(autouse=True)
+def _interpret_mode():
+    from jax.experimental.pallas import tpu as pltpu
+
+    with pltpu.force_tpu_interpret_mode():
+        yield
+
+
+def _round_up(x, m):
+    return -(-x // m) * m
+
+
+class _Pair:
+    """The same stream through the JAX kernel and the port's plain version."""
+
+    def __init__(self, ref, variant, c, mrc, k_block):
+        ref = np.asarray(ref, np.float32)
+        self.f, self.n = ref.shape
+        self.c, self.k_block = c, k_block
+        self.cap = 2 * self.n
+        self.jax = JaxEngine(ref, {"c": c, "max_run_count": mrc},
+                             cfg_overrides=ENGINE_OVERRIDES[variant], k_block=k_block, interpret=True)
+        self.jax_state = self.jax._state
+        self.cfg = OnlineConfig(c=c, max_run_count=mrc, **ENGINE_OVERRIDES[variant])
+        self.port = otw_insert.new_state(torch.from_numpy(ref), self.cfg, self.cap)
+
+    def launch_jax(self, cols):
+        k = cols.shape[1]
+        block = np.zeros((_round_up(self.k_block, 8), _round_up(self.f, 8)), np.float32)
+        block[:k, : self.f] = cols.T
+        lens = np.asarray([self.cap, self.n, k, 0], np.int32)
+        *state, status = _pallas_insert_block(lens, self.jax.ref_t, block, *self.jax_state,
+                                              self.jax.cfg, self.k_block, interpret=True)
+        self.jax_state = tuple(state)
+        return np.asarray(status)
+
+    def launch_port(self, cols):
+        rows = torch.from_numpy(np.ascontiguousarray(cols.T, dtype=np.float32))
+        otw_insert.insert_block_reference(self.port, rows, (self.cap, self.n, cols.shape[1]),
+                                          self.cfg, self.k_block)
+
+    def jax_as_port(self):
+        return otw_state_from_jax(*[np.asarray(a) for a in self.jax_state], c=self.c, n=self.n, f=self.f)
+
+    def assert_equal(self, jax_status):
+        w, live, px, py, sc = self.jax_as_port()
+        p = self.port
+        np.testing.assert_array_equal(p.status.numpy()[:4], jax_status[:4])
+        np.testing.assert_array_equal(p.scalars.numpy(), sc.numpy())
+        np.testing.assert_array_equal(p.path_x.numpy(), px.numpy())
+        np.testing.assert_array_equal(p.path_y.numpy(), py.numpy())
+        np.testing.assert_array_equal(p.live.numpy(), live.numpy())
+        np.testing.assert_allclose(p.window.numpy(), w.numpy(), rtol=1e-6, atol=1e-7)
+
+    def run(self, live, start=0):
+        for s in range(start, live.shape[1], self.k_block):
+            cols = live[:, s : s + self.k_block]
+            status = self.launch_jax(cols)
+            self.launch_port(cols)
+            self.assert_equal(status)
+
+
+def _stream(rng, variant, n_ref):
+    """A tempo-warped pair whose live side runs past the reference's end."""
+    ref, live = _make_pair(rng, n_ref=n_ref, stretch=1.0)
+    live = np.concatenate([live, _unit_cols(rng.random((12, 4)) + 0.05)], axis=1)
+    if variant == "livenote_v2_diff":  # Euclidean cost on chroma-diff features
+        ref = np.clip(np.diff(ref, axis=1), 0, np.inf)
+        live = np.clip(np.diff(live, axis=1), 0, np.inf)
+    return ref.astype(np.float32), live.astype(np.float32)
+
+
+# every variant meets every k_block, every band meets every variant
+CASES = [
+    ("otw", 3, 3, 1), ("otw", 10, 1, 2), ("otw", 25, 5, 8),
+    ("livenote", 3, 3, 8), ("livenote", 10, 1, 1), ("livenote", 25, 5, 2),
+    ("livenote_v2", 3, 3, 2), ("livenote_v2", 10, 1, 1), ("livenote_v2", 25, 5, 8),
+    ("livenote_v2_diff", 3, 3, 1), ("livenote_v2_diff", 10, 1, 8), ("livenote_v2_diff", 25, 5, 2),
+]
+
+
+@pytest.mark.parametrize("variant,c,mrc,k_block", CASES)
+def test_plain_insert_matches_jax_kernel_launch_by_launch(variant, c, mrc, k_block):
+    rng = np.random.default_rng(100 + 7 * c + k_block)
+    ref, live = _stream(rng, variant, n_ref=c + 15)  # 15 frames past the startup phase
+    pair = _Pair(ref, variant, c, mrc, k_block)
+    pair.run(live)
+    # the live side runs past the reference: stop, then frozen no-op inserts
+    assert pair.port.scalars[otw_insert.S_STOPPED] == 1
+
+
+def test_capacity_freeze_matches_jax_kernel():
+    """A live stream stuck on the first reference frame fills the 2N live
+    capacity before j reaches the end: t keeps advancing with no further
+    evaluation (otw_eran.py:50-54), and the engine does not stop."""
+    rng = np.random.default_rng(31)
+    ref = _unit_cols(rng.random((12, 12)) ** 4 + 0.01).astype(np.float32)
+    live = _unit_cols(ref[:, :1] + 0.01 * rng.random((12, 36))).astype(np.float32)
+    pair = _Pair(ref, "otw", 3, 5, 8)
+    pair.run(live)
+    sc = pair.port.scalars
+    assert sc[otw_insert.S_T] >= pair.cap
+    assert sc[otw_insert.S_STOPPED] == 0
+
+
+def test_mid_stream_state_carries_across():
+    """Run the JAX kernel alone for half the stream, carry its state into
+    the port, continue both side by side; then carry the port's state back
+    into the JAX layout and continue the JAX kernel from it."""
+    rng = np.random.default_rng(7)
+    ref, live = _stream(rng, "livenote_v2", n_ref=24)
+    pair = _Pair(ref, "livenote_v2", 10, 3, 4)
+    half = 12
+    for s in range(0, half, 4):
+        pair.launch_jax(live[:, s : s + 4])
+    w, lv, px, py, sc = pair.jax_as_port()
+    pair.port = otw_insert.OTWState(window=w, ref=pair.port.ref, live=lv, path_x=px, path_y=py,
+                                    scalars=sc, status=pair.port.status)
+    pair.run(live[:, : half + 8], start=half)
+    # port → JAX: the converted state round-trips, and the JAX kernel
+    # continues from it in step with the port
+    p = pair.port
+    pair.jax_state = otw_state_to_jax(p.window, p.live, p.path_x, p.path_y, p.scalars,
+                                      c=10, n=pair.n, f=pair.f)
+    for got, want in zip(pair.jax_as_port(), (p.window, p.live, p.path_x, p.path_y, p.scalars)):
+        np.testing.assert_array_equal(got.numpy(), want.numpy())
+    pair.run(live, start=half + 8)
