@@ -23,27 +23,56 @@ Phases, each raising on failure (the process then exits non-zero):
    PathScorer percentages, the wall-clock real-time factor, and at
    k_block ∈ {1, 8, 32} the kernel's per-launch device time (profiler)
    beside the back-to-back kernel and plain-version times (CUDA events).
+5. wavefront kernels against plain, on the card — the DP and backtrack
+   kernels and their plain versions on the same card-resident costs: both
+   step specs, float32 and float64, shapes (1, 1) … (40, 65), an all-ones
+   tie case, and the main path's (2,873, 3,118) and its transpose.
+   ``acc``, ``back``, ``points`` and ``length`` must be EQUAL (each cell is
+   the same multiply, add and strict compare, so the tolerance is zero);
+6. offline DTW main path — the three pairs of the rendered
+   ``sonata_allegro`` piece (_00 3,118 frames, _01 2,874, _02 3,252) one by one
+   through ``align_pair(engine="dtw", device="cuda")`` (chroma on the card,
+   ``dtw_device``, both kernels, ``PathScorer``), each with one launch of
+   each kernel and a path equal to the plain versions' on the same
+   card-computed cost; then the whole sweep through
+   ``CorpusRunner(root, "dtw", device="cuda").evaluate()`` with the
+   launch counters read around it; one traced pair (device busy share,
+   top device and host calls); then ``DTW(live, ref, max_dense_bytes=1)``
+   on _01/_00, which forces the banded route, in float32 and float64;
+   then each kernel's time at (2,874, 3,118): profiler device time per
+   launch, CUDA events back to back, the plain version, and the bound.
 
-Then one JSON line of per-kernel results, and last
-``{"ok": true, "device": {...}}``.  Without a CUDA device it exits non-zero
-before printing any result.
+The builds run in parallel (one ``nvcc`` per source).  Then one JSON line
+of per-kernel results, and last ``{"ok": true, "device": {...}}``.
+Without a CUDA device it exits non-zero before printing any result.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import json
 import os
 import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 PARAMS = {"c": 50, "max_run_count": 3}  # livenote_live.py:94
 VARIANTS = ("otw", "livenote", "livenote_v2", "livenote_v2_diff")
 BANDS = (10, 50, 200)
 K_BLOCKS = (1, 8, 32)
-KERNEL_SOURCE = "real_time_audio_sync_tpu_torch/csrc/otw_insert.cu"
-REPLACES = "real_time_audio_sync_tpu/ops/pallas_otw.py:803"
+CSRC = "real_time_audio_sync_tpu_torch/csrc"
+# kernel name -> (library, source, TPU kernel it replaces)
+KERNELS = {
+    "otw_insert_block": ("otw_insert", f"{CSRC}/otw_insert.cu", "real_time_audio_sync_tpu/ops/pallas_otw.py:803"),
+    "wavefront_dp": ("wavefront", f"{CSRC}/wavefront.cu", "real_time_audio_sync_tpu/ops/pallas_wavefront.py:111"),
+    "wavefront_backtrack": ("wavefront", f"{CSRC}/wavefront.cu", "real_time_audio_sync_tpu/ops/pallas_wavefront.py:181"),
+}
+# the card's published peaks (H100 SXM data sheet, at 700 W)
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS = 67e12
+WAVEFRONT_SHAPES = ((1, 1), (1, 7), (7, 1), (5, 7), (33, 20), (40, 65))
 
 
 def log(msg: str) -> None:
@@ -190,48 +219,53 @@ def time_launches(fn, state, rows, k: int, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def kernel_device_ms(launch, state, rows, k: int, reps: int):
-    """(mean device ms per kernel launch, kernel launches the trace holds)
-    from a torch.profiler trace of ``reps`` launches of k columns; the mean
-    is None when the trace holds no device time of the kernel."""
+def kernel_device_ms(launch, reps: int, kernel: str):
+    """(mean device ms per launch of the CUDA kernel named ``kernel``,
+    launches of it the trace holds) from a torch.profiler trace of
+    ``launch(r)`` for r < ``reps``; the mean is None when the trace holds
+    no device time of the kernel."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for r in range(reps):
-            launch(state, rows[r * k : (r + 1) * k], k)
+            launch(r)
         torch.cuda.synchronize()
     hits = [e for e in prof.key_averages()
-            if "otw_insert_kernel" in e.key and e.self_device_time_total > 0]
+            if kernel in e.key and e.self_device_time_total > 0]
     traced = sum(e.count for e in hits)
     if traced == 0:
         return None, 0
     return sum(e.self_device_time_total for e in hits) / 1e3 / traced, traced
 
 
-def trace_main_path(follower, buffers) -> None:
-    """One traced run of the follower: device busy share of the wall, and
-    the operations that take the device's and the host's time."""
+def trace_run(run, label: str) -> None:
+    """One traced call of ``run``: device busy share of the wall, and the
+    operations that take the device's and the host's time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        follower.start()
-        for buf in buffers:
-            follower.receive_audio(buf)
-        follower.stop()
+        run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     avgs = prof.key_averages()
     dev_us = sum(e.self_device_time_total for e in avgs)
-    log(f"phase 4 [trace]: traced wall {wall:.3f} s, device busy {dev_us / 1e6:.3f} s "
+    log(f"{label}: traced wall {wall:.3f} s, device busy {dev_us / 1e6:.3f} s "
         f"({100 * dev_us / (wall * 1e6):.1f} %), idle {100 - 100 * dev_us / (wall * 1e6):.1f} %")
     for e in sorted(avgs, key=lambda e: e.self_device_time_total, reverse=True)[:6]:
         if e.self_device_time_total > 0:
-            log(f"phase 4 [trace]: device {e.self_device_time_total / 1e3:9.1f} ms  x{e.count:6d}  {e.key[:90]}")
+            log(f"{label}: device {e.self_device_time_total / 1e3:9.1f} ms  x{e.count:6d}  {e.key[:90]}")
     for e in sorted(avgs, key=lambda e: e.self_cpu_time_total, reverse=True)[:8]:
-        log(f"phase 4 [trace]: host   {e.self_cpu_time_total / 1e3:9.1f} ms  x{e.count:6d}  {e.key[:90]}")
+        log(f"{label}: host   {e.self_cpu_time_total / 1e3:9.1f} ms  x{e.count:6d}  {e.key[:90]}")
+
+
+def follow(follower, buffers) -> None:
+    follower.start()
+    for buf in buffers:
+        follower.receive_audio(buf)
+    follower.stop()
 
 
 def phase_main_path(device, ref_wav: str, live_wav: str):
@@ -257,10 +291,7 @@ def phase_main_path(device, ref_wav: str, live_wav: str):
         torch.cuda.synchronize()
         otw_insert.launches = 0
         t0 = time.perf_counter()
-        follower.start()
-        for buf in buffers:
-            follower.receive_audio(buf)
-        follower.stop()
+        follow(follower, buffers)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = otw_insert.launches
@@ -305,16 +336,216 @@ def phase_main_path(device, ref_wav: str, live_wav: str):
                 plain_ms = time_launches(
                     lambda st, r, kk: otw_insert.insert_block_reference(st, r, lens_of(kk), cfg, kk),
                     clone_state(base), rows, k, reps)
+                st = clone_state(base)
                 dev_ms, traced = kernel_device_ms(
-                    lambda st, r, kk: otw_insert.insert_block(st, r, lens_of(kk), cfg, kk),
-                    clone_state(base), rows, k, reps)
+                    lambda r, st=st, k=k: otw_insert.insert_block(st, rows[r * k : (r + 1) * k], lens_of(k), cfg, k),
+                    reps, "otw_insert_kernel")
                 timings[k] = (kern_ms, dev_ms, plain_ms)
                 log(f"phase 4 [otw]: k_block={k}: kernel {kern_ms:.4f} ms/launch (events, back to back), "
                     f"device time {'not measured' if dev_ms is None else f'{dev_ms:.4f} ms'} "
                     f"(profiler, {traced} of {reps} launches traced); "
                     f"plain {plain_ms:.4f} ms/launch ({reps} launches each, c={PARAMS['c']}, N={eng.n})")
-            trace_main_path(ScoreFollower(ref_wav, engine, PARAMS, fused=True, device=device), buffers)
+            fresh = ScoreFollower(ref_wav, engine, PARAMS, fused=True, device=device)
+            trace_run(lambda: follow(fresh, buffers), "phase 4 [trace]")
     return launches_total, timings
+
+
+def max_abs_diff(x, y) -> float:
+    """Largest |x - y| over the cells, 0.0 where both hold the same infinity."""
+    import torch
+
+    if x.numel() == 0:
+        return 0.0
+    return float(torch.nan_to_num((x.double() - y.double()).abs(), nan=0.0).max())
+
+
+def compare_wavefront(cost, spec, what: str):
+    """Kernel against plain on one card-resident cost: raises unless acc,
+    back, points and length are equal; returns (acc max |diff|, points max
+    |diff|, the plain path origin → end)."""
+    import torch
+
+    from real_time_audio_sync_tpu_torch.ops import wavefront
+
+    acc_k, back_k = wavefront.wavefront_dp(cost, spec)
+    acc_p, back_p = wavefront.wavefront_dp_reference(cost, spec)
+    pts_k, len_k = wavefront.backtrack(back_k, spec)
+    pts_p, len_p = wavefront.backtrack_reference(back_k, spec)
+    torch.cuda.synchronize()
+    for name, x, y in (("acc", acc_k, acc_p), ("back", back_k, back_p), ("points", pts_k, pts_p),
+                       ("length", len_k, len_p)):
+        if not torch.equal(x, y):
+            raise AssertionError(f"{what}: kernel and plain disagree on {name} (max |diff| {max_abs_diff(x, y)})")
+    return max_abs_diff(acc_k, acc_p), max_abs_diff(pts_k, pts_p), pts_p[: int(len_p)].flip(0).cpu().numpy()
+
+
+def phase_wavefront_vs_plain(device):
+    """Phase 5: random and tied costs at small shapes and at the main
+    path's size, both ways round."""
+    import torch
+
+    from real_time_audio_sync_tpu_torch.ops import wavefront
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(5)
+    n_cases, worst_acc, worst_pts = 0, 0.0, 0.0
+    big = ((2873, 3118), (3118, 2873))
+    for spec_name, spec in (("dtw", wavefront.DTW_SPEC), ("wtw", wavefront.WTW_SPEC)):
+        for dtype in (torch.float32, torch.float64):
+            cases = [(shape, torch.rand(shape, generator=gen, device=device, dtype=dtype))
+                     for shape in WAVEFRONT_SHAPES + big]
+            cases.append(((12, 9), torch.ones((12, 9), device=device, dtype=dtype)))  # ties everywhere
+            for shape, cost in cases:
+                what = f"{spec_name} {str(dtype)[6:]} {shape}"
+                d_acc, d_pts, path = compare_wavefront(cost, spec, what)
+                worst_acc, worst_pts = max(worst_acc, d_acc), max(worst_pts, d_pts)
+                n_cases += 1
+                if shape in big:
+                    log(f"phase 5: {what}: kernel == plain (acc, back, points; path length {len(path)} of "
+                        f"{shape[0] + shape[1] - 1} slots)")
+    log(f"phase 5: wavefront kernels == plain on the card in all {n_cases} cases (2 specs x float32/float64 x "
+        f"{len(WAVEFRONT_SHAPES) + len(big) + 1} shapes), acc max |diff| {worst_acc}, points max |diff| "
+        f"{worst_pts}, {time.perf_counter() - t0:.1f} s")
+
+
+def time_calls(fn, reps: int, warmup: int = 2) -> float:
+    """Mean ms per call of ``fn`` over ``reps`` calls back to back, after
+    ``warmup`` calls, timed with CUDA events."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def phase_dtw_main_path(device, root: str):
+    """Phase 6; returns {kernel name: (launches, max_abs_err, ms, event_ms,
+    plain_ms, bound_ms, bound_by)} for the two wavefront kernels, the
+    errors from kernel against plain on each pair's card-computed cost."""
+    import numpy as np
+    import torch
+
+    from real_time_audio_sync_tpu_torch.eval import corpus
+    from real_time_audio_sync_tpu_torch.models import dtw
+    from real_time_audio_sync_tpu_torch.ops import wavefront
+
+    features = {}
+    worst = {"wavefront_dp": 0.0, "wavefront_backtrack": 0.0}
+    for ref_wav, live_wav in corpus.corpus_pairs(root):
+        corpus._FEAT_CACHE.clear()  # each pair's wall time includes its two chroma extractions
+        torch.cuda.synchronize()
+        wavefront.dp_launches = wavefront.backtrack_launches = 0
+        t0 = time.perf_counter()
+        result = corpus.align_pair(ref_wav, live_wav, "dtw", device=device)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = (wavefront.dp_launches, wavefront.backtrack_launches)
+        if launches != (1, 1):
+            raise AssertionError(f"{os.path.basename(live_wav)}: launches (dp, backtrack) = {launches}, want (1, 1)")
+        ref_seq = corpus._cached_chroma(ref_wav, np.float32, device)
+        live_seq = corpus._cached_chroma(live_wav, np.float32, device)
+        features[os.path.basename(ref_wav), os.path.basename(live_wav)] = (live_seq, ref_seq, result.path)
+        what = f"{os.path.basename(live_wav)} vs {os.path.basename(ref_wav)}"
+        cost = dtw._cosine_cost(live_seq, ref_seq)
+        d_acc, d_pts, plain_path = compare_wavefront(cost, wavefront.DTW_SPEC, f"phase 6 [{what}]")
+        worst["wavefront_dp"] = max(worst["wavefront_dp"], d_acc)
+        worst["wavefront_backtrack"] = max(worst["wavefront_backtrack"], d_pts)
+        if not np.array_equal(plain_path, result.path):
+            raise AssertionError(f"{what}: the main path's path differs from the plain versions'")
+        s = result.score
+        log(f"phase 6 [{what}]: {tuple(cost.shape)} cells, acc, back, points and length == plain "
+            f"(acc max |diff| {d_acc}), path {len(result.path)} points == plain, launches (dp, backtrack) "
+            f"{launches}; PathScorer count={s.count} pct_off_beats={s.pct_off_beats} "
+            f"pct_off_secs={s.pct_off_secs}; wall {wall:.3f} s (chroma of both + DTW + scoring)")
+
+    # the main path: the whole sweep, counters set to 0 just before it
+    corpus._FEAT_CACHE.clear()
+    torch.cuda.synchronize()
+    wavefront.dp_launches = wavefront.backtrack_launches = 0
+    t0 = time.perf_counter()
+    report = corpus.CorpusRunner(root, "dtw", device=device).evaluate(verbose=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"wavefront_dp": wavefront.dp_launches, "wavefront_backtrack": wavefront.backtrack_launches}
+    n = len(report.results)
+    if n != 3 or report.skipped or set(launches.values()) != {n}:
+        raise AssertionError(f"CorpusRunner: {n} pairs, {len(report.skipped)} skipped, launches {launches}")
+    for r in report.results:
+        want = features[os.path.basename(r.ref_wav), os.path.basename(r.live_wav)][2]
+        if not np.array_equal(r.path, want):
+            raise AssertionError(f"CorpusRunner: {os.path.basename(r.live_wav)} path differs from align_pair's")
+    log(f"phase 6 [CorpusRunner]: {n} pairs, launches {launches}, mean error (% points >3 s off) "
+        f"{report.mean_error}, wall {wall:.3f} s")
+    ref_wav, live_wav = corpus.corpus_pairs(root)[0]
+    corpus._FEAT_CACHE.clear()
+    trace_run(lambda: corpus.align_pair(ref_wav, live_wav, "dtw", device=device), "phase 6 [trace]")
+
+    # the banded route on the card, forced
+    live_seq, ref_seq, dense_path = features["sonata_allegro_00.wav", "sonata_allegro_01.wav"]
+    t0 = time.perf_counter()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        cost_none, _, banded_path = dtw.DTW(live_seq, ref_seq, max_dense_bytes=1, device=device)
+    wall = time.perf_counter() - t0
+    if cost_none is not None:
+        raise AssertionError("DTW(max_dense_bytes=1) did not take the banded route")
+    same = banded_path.shape == dense_path.shape and np.array_equal(banded_path, dense_path)
+    only_one = len(set(map(tuple, banded_path)) ^ set(map(tuple, dense_path)))
+    log(f"phase 6 [banded]: DTW(live _01, ref _00, max_dense_bytes=1): banded path {len(banded_path)} points, "
+        f"equal to the dense path ({len(dense_path)}): {same} ({only_one} points in one path only); "
+        f"wall {wall:.3f} s")
+    # the same pair in float64, where float32 near-ties no longer decide
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        _, _, banded64 = dtw.DTW(live_seq, ref_seq, dtype=np.float64, max_dense_bytes=1, device=device)
+    _, _, dense64 = dtw.DTW(live_seq, ref_seq, dtype=np.float64, device=device)
+    log(f"phase 6 [banded]: the same in float64: banded path equal to the dense path: "
+        f"{banded64.shape == dense64.shape and np.array_equal(banded64, dense64)}")
+
+    # each kernel's time at the main path's shape
+    cost = dtw._cosine_cost(live_seq, ref_seq).contiguous()
+    m, n = cost.shape
+    _, back = wavefront.wavefront_dp(cost, wavefront.DTW_SPEC)
+    path_len = int(wavefront.backtrack(back, wavefront.DTW_SPEC)[1])
+    reps = 20
+    out = {}
+    for name, kernel, launch, plain, plain_reps, bytes_, ops in (
+        ("wavefront_dp", "wavefront_dp_kernel",
+         lambda: wavefront.wavefront_dp(cost, wavefront.DTW_SPEC),
+         lambda: wavefront.wavefront_dp_reference(cost, wavefront.DTW_SPEC), 2,
+         m * n * (4 + 4 + 1), m * n * 8),  # cost in, acc and back out; 3 mul + 3 add + 2 compares a cell
+        ("wavefront_backtrack", "wavefront_backtrack_kernel",
+         lambda: wavefront.backtrack(back, wavefront.DTW_SPEC),
+         lambda: wavefront.backtrack_reference(back, wavefront.DTW_SPEC), 5,
+         path_len + (m + n - 1) * 8 + 4, path_len * 4),  # the codes on the path in, points and length out
+    ):
+        event_ms = time_calls(launch, reps)
+        dev_ms, traced = kernel_device_ms(lambda r: launch(), reps, kernel)
+        plain_ms = time_calls(plain, plain_reps, warmup=1)
+        t_bytes, t_ops = bytes_ / HBM_BYTES_PER_S * 1e3, ops / FP32_FLOPS * 1e3
+        bound_ms, bound_by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+        out[name] = (launches[name], worst[name], dev_ms, event_ms, plain_ms, bound_ms, bound_by)
+        log(f"phase 6 [{name}] at ({m}, {n}), float32: device time "
+            f"{'not measured' if dev_ms is None else f'{dev_ms:.4f} ms'} (profiler, {traced} of {reps} launches "
+            f"traced), {event_ms:.4f} ms back to back (CUDA events, {reps} launches), plain {plain_ms:.2f} ms "
+            f"({plain_reps} calls); bound {bound_ms:.6f} ms by {bound_by} ({bytes_} B, {ops} ops)")
+    return out
+
+
+def otw_insert_bound_ms(c: int = PARAMS["c"], k: int = 8, f: int = 12) -> float:
+    """Bytes of one k_block-k launch at band c over the memory rate: the
+    window in and out, the k columns in and live rows out, the k + c + 1
+    reference rows the band crosses, k path points, scalars and status
+    (its operations, ~k·loop_iters·(c+1)·40, take less time)."""
+    window = 2 * (c + 1) ** 2 * 4
+    rows = (2 * k + k + c + 1) * f * 4
+    return (window + rows + k * 8 + 2 * 16 * 4 + 8 * 4) / HBM_BYTES_PER_S * 1e3
 
 
 def main() -> int:
@@ -335,29 +566,42 @@ def main() -> int:
     card = smi.stdout.strip().splitlines()[0]
     log(card)
 
-    built = _build.load("otw_insert")
-    log(f"phase 2: built {built.path.name} in {built.seconds:.1f} s")
-    for line in built.log.splitlines():
-        if "ptxas info" in line and ("registers" in line or "Compiling" in line):
-            log(f"phase 2: {line.strip()}")
+    libs = sorted({lib for lib, _, _ in KERNELS.values()})
+    with concurrent.futures.ThreadPoolExecutor(len(libs)) as pool:  # one nvcc per source, all at once
+        builds = dict(zip(libs, pool.map(_build.load, libs)))
+    for lib, built in builds.items():
+        log(f"phase 2: built {built.path.name} in {built.seconds:.1f} s")
+        for line in built.log.splitlines():
+            if "ptxas info" in line and ("registers" in line or "Compiling" in line):
+                log(f"phase 2: {line.strip()}")
 
     worst = phase_kernel_vs_plain(device)
+    phase_wavefront_vs_plain(device)
 
     with tempfile.TemporaryDirectory() as root:
         ref_wav, live_wav = render_piece(root)
         launches, timings = phase_main_path(device, ref_wav, live_wav)
+        wf = phase_dtw_main_path(device, root)
 
-    # "ms" is the kernel's device time per launch (profiler) at k_block 8;
-    # the back-to-back event time below k_block 32 is the host's launch rate
+    # "ms" is each kernel's device time per launch (profiler; the CUDA-event
+    # time when the trace holds none); otw_insert_block's at k_block 8,
+    # where the back-to-back event time is the host's launch rate
     kern_ms, dev_ms, plain_ms = timings[8]
+    rows = {"otw_insert_block": (launches, worst, dev_ms, kern_ms, plain_ms, otw_insert_bound_ms(), "bytes")}
+    rows.update(wf)
+    kernels = []
+    for name, (n_launch, err, d_ms, e_ms, p_ms, b_ms, b_by) in rows.items():
+        _, source, replaces = KERNELS[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": n_launch, "max_abs_err": err,
+            "ms": e_ms if d_ms is None else d_ms,
+            "ms_from": "cuda events" if d_ms is None else "profiler device time",
+            "event_ms": e_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None,  # no single PyTorch call computes these recurrences
+        })
     log(f"total {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": [{
-        "name": "otw_insert_block", "route": "cuda", "source": KERNEL_SOURCE, "replaces": REPLACES,
-        "launches": launches, "max_abs_err": worst,
-        "ms": kern_ms if dev_ms is None else dev_ms,
-        "ms_from": "cuda events" if dev_ms is None else "profiler device time",
-        "event_ms": kern_ms, "plain_ms": plain_ms,
-    }]}), flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                               "count": torch.cuda.device_count()}}), flush=True)
     return 0

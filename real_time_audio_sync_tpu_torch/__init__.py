@@ -8,15 +8,17 @@ JAX nor the JAX package (whose ``__init__`` imports jax):
   matmuls, the in-repo chroma filterbank, L2 normalization.
 - ``ops``       — the hand-written CUDA kernels (sources in ``csrc/``,
   built with ``nvcc`` at first use) beside their plain PyTorch versions.
-- ``models``    — the fused streaming OTW/LiveNote/LiveNoteV2 engine.
+- ``models``    — the fused streaming OTW/LiveNote/LiveNoteV2 engine and
+  offline DTW (dense wavefront and banded).
 - ``streaming`` — hop framing and the live ``ScoreFollower``.
-- ``eval``      — beat ground truth, the path scorer, field logs and the
-  synthetic corpus.
+- ``eval``      — beat ground truth, the path scorer, field logs, the
+  synthetic corpus, the pair and corpus runners and their CLI.
 - ``utils``     — wav IO, profiling, and state conversion to and from the
   JAX engine's layout.
 
-Every engine and the follower take an explicit ``device``: a kernel runs
-where its tensors live, and nothing falls back from the card to the CPU.
+Every entry point takes a ``device`` and runs on the card (``"cuda"``)
+unless the caller asks for ``"cpu"``: a kernel runs where its tensors
+live, and nothing falls back from the card to the CPU.
 """
 
 from real_time_audio_sync_tpu_torch import numerics  # noqa: F401  (TF32 off, process-wide)

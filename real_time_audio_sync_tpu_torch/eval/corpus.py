@@ -1,8 +1,234 @@
-"""Corpus evaluation defaults (reference tests.py:140).
+"""Pair and corpus evaluation runners (reference tests.py:143-262,
+test_simple.py:94-198; the JAX package's ``eval/corpus.py:31-473``).
 
-Only the engine parameters the live follower defaults to are ported so far;
-the pair and corpus drivers of the JAX package's ``eval/corpus.py`` are a
-later slice (ROADMAP.md, Queue 1).
+``align_pair`` extracts the chroma of both recordings on ``device``,
+aligns them with the chosen engine and scores the path against beat
+ground truth.  ``CorpusRunner`` mirrors ``test_all``: walk the corpus
+directory, form all i<j recording pairs per piece (skipping ``_20b``
+excerpts, tests.py:216), evaluate each pair, average the headline metric
+(% of path points >3 s off), and cross-check the recorded BSO field path
+when one is given (tests.py:245-251).  Pairs with missing audio are
+reported and skipped.
+
+Ported so far: ``engine="dtw"`` (offline DTW, the wavefront kernels on a
+CUDA device).  The other engines and modes raise ``NotImplementedError``
+naming their ROADMAP.md item: the online engines' streaming insert mode
+(Queue 1 item 1), ``mode="fused"`` (item 3) and WTW (item 7).  The
+engine parameters, the WTW defaults and the raw-audio memo arrive with
+those engines.
 """
 
+from __future__ import annotations
+
+import dataclasses
+import os
+from collections import OrderedDict
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from real_time_audio_sync_tpu_torch.eval.ground_truth import GroundTruth
+from real_time_audio_sync_tpu_torch.eval.logs import path_from_field_log
+from real_time_audio_sync_tpu_torch.eval.scorer import PathScorer, ScoreResult
+from real_time_audio_sync_tpu_torch.features.chroma import wav_to_chroma
+from real_time_audio_sync_tpu_torch.models.dtw import _DENSE_BYTES_PER_CELL, _dense_limit_bytes, dtw_auto, dtw_device
+from real_time_audio_sync_tpu_torch.models.online_core import ENGINE_OVERRIDES
+
 DEFAULT_PARAMS = {"search_band_width": 50, "max_run_count": 3}  # tests.py:140
+
+ENGINES = ("dtw", "otw", "livenote", "livenote_v2", "livenote_v2_diff", "wtw")
+PORTED_ENGINES = ("dtw",)
+
+# Chroma memo for corpus sweeps: each recording appears in up to |recs|−1
+# pairs of a sweep.  Keyed by (path, mtime, dtype, device); LRU
+# oldest-first eviction.
+_FEAT_CACHE: "OrderedDict[tuple, torch.Tensor]" = OrderedDict()
+_FEAT_CACHE_MAX = 64
+
+
+def _cached_chroma(path: str, dtype, device) -> torch.Tensor:
+    """The (12, T) chroma tensor of ``path`` on ``device``, memoised."""
+    device = torch.device(device)
+    key = (os.path.abspath(path), os.path.getmtime(path), np.dtype(dtype).name, str(device))
+    if key in _FEAT_CACHE:
+        _FEAT_CACHE.move_to_end(key)  # refresh recency
+        return _FEAT_CACHE[key]
+    value = wav_to_chroma(path, dtype=torch.from_numpy(np.zeros(0, dtype)).dtype, device=device)
+    while len(_FEAT_CACHE) >= _FEAT_CACHE_MAX:
+        _FEAT_CACHE.popitem(last=False)  # oldest-first
+    _FEAT_CACHE[key] = value
+    return value
+
+
+@dataclasses.dataclass
+class PairResult:
+    ref_wav: str
+    live_wav: str
+    engine: str
+    path: np.ndarray
+    score: ScoreResult
+
+
+def align_pair(
+    ref_wav: str,
+    live_wav: str,
+    engine: str = "dtw",
+    dtype=np.float32,
+    mode: str = "insert",
+    *,
+    device="cuda",
+) -> PairResult:
+    """Align one recording pair with the chosen engine on ``device`` and
+    score it.
+
+    ``engine="dtw"`` extracts both chromas, runs the dense offline DTW
+    (``models/dtw.dtw_device``; the banded ``dtw_auto`` above the dense
+    byte budget) and fetches only the backtracked path.  Argument checks
+    are the JAX package's; the engines and modes not ported yet raise
+    ``NotImplementedError``."""
+    if engine not in ENGINES:
+        raise ValueError(f"unknown engine {engine!r}; choose from {ENGINES}")
+    if mode not in ("insert", "fused", "oracle"):
+        raise ValueError(f"unknown mode {mode!r}; choose 'insert', 'fused' or 'oracle'")
+    if mode == "oracle" and engine != "wtw":
+        raise ValueError("mode='oracle' selects the host-side WTW parity loop; "
+                         f"{engine!r} has no separate oracle mode (use 'insert')")
+    if mode == "fused":
+        if engine not in ENGINE_OVERRIDES and engine != "wtw":
+            raise ValueError(f"mode='fused' applies to the online engines and wtw; {engine!r} has no fused backend")
+        if np.dtype(dtype) != np.float32:
+            raise ValueError("mode='fused' runs the float32 device backends; use dtype=float32 "
+                             "(the insert mode supports float64)")
+    if engine == "wtw":
+        raise NotImplementedError("align_pair(engine='wtw'): WTW is not ported yet: ROADMAP.md Queue 1, item 7")
+    if mode == "fused":
+        raise NotImplementedError(
+            f"align_pair({engine!r}, mode='fused'): whole-pair set_live is not ported yet: "
+            "ROADMAP.md Queue 1, item 3")
+    if engine != "dtw":
+        raise NotImplementedError(
+            f"align_pair({engine!r}): the online engines' streaming insert mode is not ported yet: "
+            "ROADMAP.md Queue 1, item 1")
+
+    ref_seq = _cached_chroma(ref_wav, dtype, device)
+    live_seq = _cached_chroma(live_wav, dtype, device)
+    m, n = live_seq.shape[1], ref_seq.shape[1]
+    if m * n * _DENSE_BYTES_PER_CELL > _dense_limit_bytes():
+        # hour-scale pairs: the same delegation as the public DTW()
+        path, _, _ = dtw_auto(live_seq, ref_seq, device=device)
+    else:
+        _, _, points, length = dtw_device(live_seq, ref_seq, device=device)
+        path = points[: int(length)].flip(0).cpu().numpy()
+    score = PathScorer.for_pair(ref_wav, live_wav).score(path)
+    return PairResult(ref_wav, live_wav, engine, np.asarray(path), score)
+
+
+def corpus_pairs(recordings_dir: str) -> List[Tuple[str, str]]:
+    """All i<j recording pairs per piece directory (tests.py:211-227),
+    skipping ``_20b`` excerpts."""
+    pairs = []
+    root = recordings_dir.rstrip("/")
+    for d in sorted(os.listdir(root)):
+        piece_dir = os.path.join(root, d)
+        if not os.path.isdir(piece_dir):
+            continue
+        recs: List[str] = []
+        for f in sorted(os.listdir(piece_dir)):
+            stem = f[:-4]
+            if f.startswith(d) and stem not in recs and not stem.endswith("_20b"):
+                recs.append(stem)
+        for i in range(len(recs)):
+            for j in range(i + 1, len(recs)):
+                pairs.append(
+                    (os.path.join(piece_dir, recs[i] + ".wav"), os.path.join(piece_dir, recs[j] + ".wav"))
+                )
+    return pairs
+
+
+@dataclasses.dataclass
+class CorpusReport:
+    results: List[PairResult]
+    skipped: List[Tuple[str, str]]  # pairs with missing audio
+    field_check: Optional[ScoreResult] = None
+
+    @property
+    def mean_error(self) -> float:
+        """Mean % of path points >3 s off (tests.py:256-262)."""
+        errors = [r.score.pct_off_3s for r in self.results]
+        if self.field_check is not None:
+            errors.append(self.field_check.pct_off_3s)
+        return float(np.mean(errors)) if errors else float("nan")
+
+
+class CorpusRunner:
+    """``test_all`` parity (tests.py:199-262): every present pair through
+    :func:`align_pair` in turn, on ``device``."""
+
+    def __init__(self, recordings_dir: str, engine: str = "dtw", dtype=np.float32, mode: str = "insert", *,
+                 device="cuda"):
+        self.recordings_dir = recordings_dir
+        self.engine = engine
+        self.dtype = dtype
+        self.mode = mode
+        self.device = device
+
+    def evaluate(self, field_log: Optional[str] = None, verbose: bool = True) -> CorpusReport:
+        results: List[PairResult] = []
+        skipped: List[Tuple[str, str]] = []
+        for ref_wav, live_wav in corpus_pairs(self.recordings_dir):
+            if not (os.path.exists(ref_wav) and os.path.exists(live_wav)):
+                skipped.append((ref_wav, live_wav))
+                continue
+            result = align_pair(ref_wav, live_wav, self.engine, self.dtype, mode=self.mode, device=self.device)
+            results.append(result)
+            if verbose:
+                self._print_result(result)
+
+        # recorded-field-path cross-check (tests.py:245-251)
+        field_check = None
+        if field_log and os.path.exists(field_log):
+            bso_ref = os.path.join(self.recordings_dir, "bso", "bso_01.wav")
+            bso_live = os.path.join(self.recordings_dir, "bso", "bso_02.wav")
+            if os.path.exists(bso_ref[:-4] + ".csv") and os.path.exists(bso_live[:-4] + ".csv"):
+                scorer = PathScorer(
+                    GroundTruth.from_csv(bso_ref[:-4] + ".csv"),
+                    GroundTruth.from_csv(bso_live[:-4] + ".csv"),
+                )
+                field_check = scorer.score(path_from_field_log(field_log))
+                if verbose:
+                    print(f"field-log cross-check: >3s={field_check.pct_off_3s:.2f}%")
+
+        report = CorpusReport(results, skipped, field_check)
+        if verbose:
+            if skipped:
+                print(f"skipped {len(skipped)} pairs with missing audio")
+            print(f"mean error (% points >3 s off): {report.mean_error:.3f}")
+        return report
+
+    def _print_result(self, result: PairResult) -> None:
+        s = result.score
+        print(
+            f"{os.path.basename(result.ref_wav)} vs {os.path.basename(result.live_wav)} "
+            f"[{self.engine}]: >1b={s.pct_off_beats[1]:.2f}% "
+            f">3b={s.pct_off_beats[3]:.2f}% >3s={s.pct_off_3s:.2f}%"
+        )
+
+
+def run_simple(ref_wav: str, live_wav: str, engines: Sequence[str] = PORTED_ENGINES, dtype=np.float32,
+               verbose: bool = True, *, device="cuda") -> Dict[str, PairResult]:
+    """The test_simple.py:94-198 smoke run: each engine on one pair, with
+    bucket accuracies.  By default the ported engines; raises at the first
+    engine that is not ported yet."""
+    out = {}
+    for engine in engines:
+        result = align_pair(ref_wav, live_wav, engine, dtype=dtype, device=device)
+        out[engine] = result
+        if verbose:
+            s = result.score
+            print(
+                f"{engine:>16}: >1b={s.pct_off_beats[1]:6.2f}%  >3b={s.pct_off_beats[3]:5.2f}%  "
+                f">5b={s.pct_off_beats[5]:5.2f}%  >10b={s.pct_off_beats[10]:5.2f}%  "
+                f"sq_err={s.squared_beat_error:10.1f}  n={s.count}"
+            )
+    return out

@@ -32,7 +32,7 @@ def hann_window(n: int) -> np.ndarray:
     return 0.5 - 0.5 * np.cos(2.0 * np.pi * k / (n - 1))
 
 
-def frontend_constants(n_fft: int = FFT_LEN, fs: int = FS, dtype=torch.float32, *, device):
+def frontend_constants(n_fft: int = FFT_LEN, fs: int = FS, dtype=torch.float32, *, device="cuda"):
     """(hann, dft_cos, dft_sin, filterbank_T) as tensors on ``device``.
 
     ``rfft(x)[k] = x·cos_k − i·(x·sin_k)``; the factors are computed in
@@ -101,7 +101,7 @@ def chroma_pipeline(wav: torch.Tensor, n_fft: int = FFT_LEN, hop: int = HOP_SIZE
     return chroma_frames(frame_span(x, t, n_fft, hop), n_fft, fs, normalize)
 
 
-def chroma_from_samples(wav, dtype=torch.float32, normalize: bool = True, *, device) -> torch.Tensor:
+def chroma_from_samples(wav, dtype=torch.float32, normalize: bool = True, *, device="cuda") -> torch.Tensor:
     """22.05 kHz mono samples (numpy or tensor) → (12, T) chroma on
     ``device``."""
     wav_t = torch.as_tensor(wav)
@@ -113,7 +113,7 @@ def chroma_from_samples(wav, dtype=torch.float32, normalize: bool = True, *, dev
     return chroma_pipeline(wav_t.to(device=device, dtype=dtype), normalize=normalize)
 
 
-def wav_to_chroma(path_to_wav: str, dtype=torch.float32, *, device) -> torch.Tensor:
+def wav_to_chroma(path_to_wav: str, dtype=torch.float32, *, device="cuda") -> torch.Tensor:
     """Reference ``wav_to_chroma`` (chroma.py:25-33): load → STFT → chroma."""
     wav, fs = load_wav(path_to_wav)
     if fs != FS:
@@ -121,7 +121,7 @@ def wav_to_chroma(path_to_wav: str, dtype=torch.float32, *, device) -> torch.Ten
     return chroma_from_samples(wav, dtype, device=device)
 
 
-def wav_to_chroma_col(wav_buf, dtype=torch.float32, *, device) -> torch.Tensor:
+def wav_to_chroma_col(wav_buf, dtype=torch.float32, *, device="cuda") -> torch.Tensor:
     """Reference ``wav_to_chroma_col`` (chroma.py:35-42): one fft_len-sample
     buffer → one 12-dim chroma column."""
     buf = torch.as_tensor(wav_buf)

@@ -1,1 +1,3 @@
-"""Alignment engines: the fused streaming OTW/LiveNote/LiveNoteV2 engine (``fused_streaming``) and their shared core (``online_core``)."""
+"""Alignment engines: the fused streaming OTW/LiveNote/LiveNoteV2 engine (``fused_streaming``), their shared core (``online_core``) and offline DTW (``dtw``)."""
+
+from real_time_audio_sync_tpu_torch.models.dtw import DTW, dtw_auto  # noqa: F401

@@ -47,7 +47,7 @@ class FusedStreamingEngine(StatusPolling):
     launches the hand-written kernel, ``"cpu"`` runs its plain version."""
 
     def __init__(self, ref, params, cfg_overrides: Optional[dict] = None, k_block: int = 8, *,
-                 device, long_ref: Optional[bool] = None):
+                 device="cuda", long_ref: Optional[bool] = None):
         if long_ref:
             raise NotImplementedError(
                 "long_ref=True (per-launch path deltas of the long-reference kernel) is not "

@@ -29,6 +29,7 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 #: the C signature of each kernel library's entry points
 SIGNATURES = {
     "otw_insert": {
@@ -37,6 +38,11 @@ SIGNATURES = {
             ctypes.c_int,
         ),
         "otw_error_string": ([_I], ctypes.c_char_p),
+    },
+    "wavefront": {
+        "wavefront_dp": ([_P] * 3 + [_L] * 2 + [_I] * 4 + [ctypes.c_double] * 3 + [_I] * 4 + [_P], ctypes.c_int),
+        "wavefront_backtrack": ([_P] * 3 + [_L] * 2 + [_I] * 8 + [_P], ctypes.c_int),
+        "wavefront_error_string": ([_I], ctypes.c_char_p),
     },
 }
 

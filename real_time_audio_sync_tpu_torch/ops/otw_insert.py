@@ -200,8 +200,8 @@ def _minplus_doubling(b: torch.Tensor, cost: torch.Tensor) -> torch.Tensor:
     r, csum = b, cost
     shift = 1
     while shift < n:
-        r_sh = torch.cat([torch.full((shift,), float("inf"), dtype=torch.float32, device=b.device), r[:-shift]])
-        c_sh = torch.cat([torch.zeros(shift, dtype=torch.float32, device=b.device), csum[:-shift]])
+        r_sh = torch.cat([torch.full((shift,), float("inf"), dtype=b.dtype, device=b.device), r[:-shift]])
+        c_sh = torch.cat([torch.zeros(shift, dtype=b.dtype, device=b.device), csum[:-shift]])
         r = torch.minimum(r, r_sh + csum)
         csum = c_sh + csum
         shift *= 2

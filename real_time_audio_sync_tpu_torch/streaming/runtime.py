@@ -77,7 +77,7 @@ class ScoreFollower:
         log_dir: Optional[str] = None,
         *,
         fused: bool = False,
-        device,
+        device="cuda",
     ):
         from real_time_audio_sync_tpu_torch.eval.corpus import DEFAULT_PARAMS
         from real_time_audio_sync_tpu_torch.features.chroma import wav_to_chroma

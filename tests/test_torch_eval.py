@@ -1,0 +1,195 @@
+"""The port's pair and corpus runners (``eval/corpus.py``) and their CLI
+(``eval/__main__.py``) with ``engine="dtw"`` on the CPU, against the JAX
+package's, on synthetic ``CASES`` pairs rendered from their seeds.
+
+Each package on its own float32 frontend: the two chromas of a recording
+differ by float32 rounding, and the synthetic pieces hold each chord for a
+beat, so many DP cells tie exactly and those ulps move path points on most
+pairs.
+So the slice is checked in parts:
+
+- the JAX frontend's chroma fed to both runners gives equal paths and
+  scores (the DTW, the path readout and the scoring agree exactly);
+- each package on its own float64 frontend gives equal paths (the second
+  witness: the float32 differences come from the chroma alone);
+- each on its own float32 frontend, the chromas agree within 1e-5 and the
+  points that moved are counted and printed (``-s``).
+"""
+
+import os
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
+
+from real_time_audio_sync_tpu.eval import corpus as jcorpus  # noqa: E402
+from real_time_audio_sync_tpu.eval.__main__ import main as jmain  # noqa: E402
+from real_time_audio_sync_tpu.features import chroma as jchroma  # noqa: E402
+from real_time_audio_sync_tpu_torch.eval import corpus as tcorpus, synthetic  # noqa: E402
+from real_time_audio_sync_tpu_torch.eval.__main__ import main as tmain  # noqa: E402
+from real_time_audio_sync_tpu_torch.eval.logs import write_field_log  # noqa: E402
+from real_time_audio_sync_tpu_torch.features import chroma as tchroma  # noqa: E402
+from real_time_audio_sync_tpu_torch.ops import wavefront as twf  # noqa: E402
+
+PAIRS = ("steady", "dropout", "noisy", "jittered")
+
+
+@pytest.fixture(scope="module")
+def cases(tmp_path_factory):
+    root = tmp_path_factory.mktemp("Songs")
+    synthetic.build_corpus(str(root), PAIRS)
+    return str(root)
+
+
+@pytest.fixture(autouse=True)
+def fresh_memo(monkeypatch):
+    """Each test extracts anew (monkeypatched frontends must not leak
+    through the extraction memo)."""
+    from collections import OrderedDict
+
+    monkeypatch.setattr(tcorpus, "_FEAT_CACHE", OrderedDict())
+
+
+def _pair(root, name):
+    return os.path.join(root, name, f"{name}_00.wav"), os.path.join(root, name, f"{name}_01.wav")
+
+
+def _fields(score):
+    return score.count, score.squared_beat_error, score.pct_off_beats, score.pct_off_secs
+
+
+def _same_result(got, want):
+    np.testing.assert_array_equal(got.path, want.path)
+    assert _fields(got.score) == _fields(want.score)
+    assert (got.ref_wav, got.live_wav, got.engine) == (want.ref_wav, want.live_wav, want.engine)
+
+
+@pytest.mark.parametrize("name", PAIRS)
+def test_align_pair_dtw_on_the_jax_chroma_matches_jax(cases, name, monkeypatch):
+    ref, live = _pair(cases, name)
+    want = jcorpus.align_pair(ref, live, "dtw")
+    monkeypatch.setattr(tcorpus, "wav_to_chroma",
+                        lambda path, dtype, *, device: torch.from_numpy(np.array(jchroma.wav_to_chroma(path))))
+    twf.dp_launches = twf.backtrack_launches = 0
+    _same_result(tcorpus.align_pair(ref, live, "dtw", device="cpu"), want)
+    assert twf.dp_launches == twf.backtrack_launches == 0  # the CPU runs the plain versions
+
+
+@pytest.mark.parametrize("name", PAIRS)
+def test_align_pair_dtw_on_own_frontends(cases, name):
+    ref, live = _pair(cases, name)
+    # float64 frontends: equal paths
+    _same_result(tcorpus.align_pair(ref, live, "dtw", dtype=np.float64, device="cpu"),
+                 jcorpus.align_pair(ref, live, "dtw", dtype=np.float64))
+    # float32 frontends: chroma within 1e-5; count the points that moved
+    for wav in (ref, live):
+        np.testing.assert_allclose(tchroma.wav_to_chroma(wav, device="cpu").numpy(),
+                                   np.asarray(jchroma.wav_to_chroma(wav)), rtol=0, atol=1e-5)
+    got = tcorpus.align_pair(ref, live, "dtw", device="cpu")
+    want = jcorpus.align_pair(ref, live, "dtw")
+    moved = set(map(tuple, got.path)) ^ set(map(tuple, want.path))
+    print(f"{name}: float32 own frontends: {len(moved)} points in one path only "
+          f"(port {len(got.path)}, JAX {len(want.path)} points)")
+    for p in (got.path, want.path):
+        assert tuple(p[0]) == (0, 0) and (np.diff(p, axis=0) >= 0).all()
+
+
+def test_align_pair_argument_checks_and_unported_engines(cases):
+    ref, live = _pair(cases, "steady")
+    with pytest.raises(ValueError, match="unknown engine"):
+        tcorpus.align_pair(ref, live, "nope", device="cpu")
+    with pytest.raises(ValueError, match="unknown mode"):
+        tcorpus.align_pair(ref, live, "dtw", mode="bogus", device="cpu")
+    with pytest.raises(ValueError, match="oracle"):
+        tcorpus.align_pair(ref, live, "dtw", mode="oracle", device="cpu")
+    with pytest.raises(ValueError, match="no fused backend"):
+        tcorpus.align_pair(ref, live, "dtw", mode="fused", device="cpu")
+    with pytest.raises(ValueError, match="float32"):
+        tcorpus.align_pair(ref, live, "otw", mode="fused", dtype=np.float64, device="cpu")
+    for engine, mode, item in (("otw", "insert", "item 1"), ("livenote_v2_diff", "insert", "item 1"),
+                               ("livenote_v2", "fused", "item 3"), ("wtw", "insert", "item 7"),
+                               ("wtw", "fused", "item 7")):
+        with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue 1, {item}"):
+            tcorpus.align_pair(ref, live, engine, mode=mode, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 1"):  # dtw runs, then otw raises
+        tcorpus.run_simple(ref, live, tcorpus.ENGINES, verbose=False, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 1"):
+        tcorpus.CorpusRunner(cases, "livenote_v2_diff", device="cpu").evaluate(verbose=False)
+    # the defaults run the ported engine
+    got = tcorpus.run_simple(ref, live, verbose=False, device="cpu")
+    assert list(got) == ["dtw"]
+    _same_result(got["dtw"], tcorpus.align_pair(ref, live, device="cpu"))
+
+
+@pytest.fixture(scope="module")
+def two_piece_corpus(tmp_path_factory):
+    """Two pieces (one pair each) and a third whose audio is missing."""
+    root = tmp_path_factory.mktemp("Songs")
+    synthetic.build_corpus(str(root), ["steady", "noisy"])
+    gone = root / "gamma"
+    gone.mkdir()
+    for idx in (0, 1):
+        (gone / f"gamma_{idx:02d}.csv").write_text("0.000000,1\n0.500000,2\n")
+    return str(root)
+
+
+def test_corpus_runner_matches_jax(two_piece_corpus, capsys):
+    got = tcorpus.CorpusRunner(two_piece_corpus, "dtw", dtype=np.float64, device="cpu").evaluate()
+    got_out = capsys.readouterr().out
+    want = jcorpus.CorpusRunner(two_piece_corpus, "dtw", dtype=np.float64).evaluate()
+    want_out = capsys.readouterr().out
+    assert tcorpus.corpus_pairs(two_piece_corpus) == jcorpus.corpus_pairs(two_piece_corpus)
+    assert got.skipped == want.skipped and len(got.skipped) == 1
+    assert len(got.results) == len(want.results) == 2
+    for g, w in zip(got.results, want.results):
+        _same_result(g, w)
+    assert got.mean_error == want.mean_error
+    assert got_out == want_out
+
+
+def test_cli_matches_jax(two_piece_corpus, tmp_path, capsys):
+    ref, live = _pair(two_piece_corpus, "steady")
+    rng = np.random.default_rng(3)
+    path = [(int(i), int(max(0, i + d))) for i, d in zip(range(140), rng.integers(-8, 9, 140))]
+    log = str(tmp_path / "field.txt")
+    header = [("fft_len", 4096), ("hop_size", 2048), ("search_band_width", 50), ("max_run_count", 3)]
+    write_field_log(log, ref, header, path)
+    runs = [
+        ["--score-log", log, "--ref-csv", ref[:-4] + ".csv", "--live-csv", live[:-4] + ".csv"],
+        ["--ref", ref, "--live", live, "--engine", "dtw", "--dtype", "float64"],
+        ["--corpus", two_piece_corpus, "--engine", "dtw", "--dtype", "float64"],
+    ]
+    for args in runs:
+        assert tmain(args + ["--device", "cpu"]) == 0
+        got = capsys.readouterr().out
+        assert jmain(args) == 0
+        want = capsys.readouterr().out
+        assert got.splitlines() == want.splitlines() and got.strip(), args
+        if "--engine" in args:  # dtw is the port's default engine
+            assert tmain([a for a in args if a not in ("--engine", "dtw")] + ["--device", "cpu"]) == 0
+            assert capsys.readouterr().out == got
+    with pytest.raises(NotImplementedError, match="item 7"):
+        tmain(["--ref", ref, "--live", live, "--engine", "wtw", "--device", "cpu"])
+
+
+def test_chroma_memo_is_an_lru(cases, monkeypatch):
+    """The chroma memo returns the same tensor on a hit, keys on dtype,
+    and evicts the least recently used entry at capacity."""
+    ref, live = _pair(cases, "steady")
+    chroma = tcorpus._cached_chroma(ref, np.float32, "cpu")
+    assert chroma.dtype == torch.float32 and chroma.shape[0] == 12
+    np.testing.assert_array_equal(chroma.numpy(), tchroma.wav_to_chroma(ref, device="cpu").numpy())
+    assert tcorpus._cached_chroma(ref, np.float32, "cpu") is chroma
+    assert tcorpus._cached_chroma(ref, np.float64, "cpu").dtype == torch.float64  # dtype is part of the key
+
+    monkeypatch.setattr(tcorpus, "_FEAT_CACHE_MAX", 2)
+    tcorpus._FEAT_CACHE.clear()
+    first = tcorpus._cached_chroma(ref, np.float32, "cpu")
+    tcorpus._cached_chroma(live, np.float32, "cpu")
+    assert tcorpus._cached_chroma(ref, np.float32, "cpu") is first  # refreshes ref: live is now the oldest
+    tcorpus._cached_chroma(ref, np.float64, "cpu")
+    assert len(tcorpus._FEAT_CACHE) == 2
+    assert [k[0] for k in tcorpus._FEAT_CACHE] == [os.path.abspath(ref)] * 2
+    assert tcorpus._cached_chroma(ref, np.float32, "cpu") is first

@@ -258,11 +258,13 @@ def test_seed_origin_point_gives_set_live_path():
 
 
 def test_engine_contract():
-    """The device is explicit; the long-reference layout is not ported."""
+    """The device defaults to the card; the long-reference layout is not
+    ported."""
+    import inspect
+
     rng = np.random.default_rng(0)
     ref, _ = _make_pair(rng, n_ref=20)
-    with pytest.raises(TypeError):
-        FusedStreamingEngine(ref, PARAMS)  # no default device
+    assert inspect.signature(FusedStreamingEngine).parameters["device"].default == "cuda"
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         _engine(ref, long_ref=True)
     with pytest.raises(ValueError, match="shorter than search band"):

@@ -53,3 +53,53 @@ def test_no_source_line_imports_jax_or_the_jax_package():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     offenders = [str(p.relative_to(ROOT)) for p in files if pattern.search(p.read_text())]
     assert not offenders, offenders
+
+
+ENTRY_POINTS = [
+    ("streaming.runtime", "ScoreFollower"),
+    ("models.fused_streaming", "FusedStreamingEngine"),
+    ("features.chroma", "frontend_constants"),
+    ("features.chroma", "chroma_from_samples"),
+    ("features.chroma", "wav_to_chroma"),
+    ("features.chroma", "wav_to_chroma_col"),
+    ("models.dtw", "DTW"),
+    ("models.dtw", "dtw_device"),
+    ("models.dtw", "dtw_auto"),
+    ("ops.banded_dtw", "dtw_banded"),
+    ("eval.corpus", "align_pair"),
+    ("eval.corpus", "CorpusRunner"),
+    ("eval.corpus", "run_simple"),
+]
+
+
+@pytest.mark.parametrize("module,name", ENTRY_POINTS, ids=[name for _, name in ENTRY_POINTS])
+def test_entry_points_default_to_the_card(module, name):
+    """Every public entry point runs on the card unless the caller asks
+    for the CPU (read from the signature; nothing is run)."""
+    import importlib
+    import inspect
+
+    entry = getattr(importlib.import_module(f"real_time_audio_sync_tpu_torch.{module}"), name)
+    assert inspect.signature(entry).parameters["device"].default == "cuda"
+
+
+def test_cli_defaults_to_the_card(monkeypatch):
+    """The CLI hands the corpus runner ``device="cuda"`` unless
+    ``--device`` says otherwise (the runner is replaced; nothing is
+    aligned)."""
+    from real_time_audio_sync_tpu_torch.eval import corpus
+    from real_time_audio_sync_tpu_torch.eval.__main__ import main
+
+    seen = []
+
+    class Recorder:
+        def __init__(self, *args, device, **kwargs):
+            seen.append(device)
+
+        def evaluate(self, field_log=None):
+            return None
+
+    monkeypatch.setattr(corpus, "CorpusRunner", Recorder)
+    assert main(["--corpus", "Songs", "--engine", "dtw"]) == 0
+    assert main(["--corpus", "Songs", "--engine", "dtw", "--device", "cpu"]) == 0
+    assert seen == ["cuda", "cpu"]

@@ -19,6 +19,7 @@ cover it:
   this shows that every point the two own-frontend paths differ in comes
   from the chroma difference alone, not from the followers.
 """
+import inspect
 import os
 
 import numpy as np
@@ -126,5 +127,5 @@ def test_follower_contract(steady):
         ScoreFollower(ref, "otw", PARAMS, device="cpu")
     with pytest.raises(ValueError, match="unknown follower engine"):
         ScoreFollower(ref, "livenote_v2_diff", PARAMS, fused=True, device="cpu")
-    with pytest.raises(TypeError):
-        ScoreFollower(ref, "otw", PARAMS, fused=True)  # no default device
+    # the card unless the caller asks for the CPU
+    assert inspect.signature(ScoreFollower).parameters["device"].default == "cuda"
