@@ -41,6 +41,23 @@ Phases, each raising on failure (the process then exits non-zero):
    on _01/_00, which forces the banded route, in float32 and float64;
    then each kernel's time at (2,874, 3,118): profiler device time per
    launch, CUDA events back to back, the plain version, and the bound.
+7. set_live kernel against plain, on the card — the whole-pair kernel and
+   its plain version on the same card-resident pairs: 4 engine variants ×
+   bands c ∈ {10, 50, 200} × {live runs out, stop past the reference's end
+   with live ≈ 2.6× the reference, the 2N live-capacity halt}; a ragged
+   batch of 4 == each pair alone == plain; a shared reference × 3.  Path,
+   plen, t, j and stopped must be EQUAL.
+8. fused corpus sweep main path — the full-scale synthetic corpus
+   (``eval/synthetic.FULL_PIECES``: 8 pieces, 21 recordings, 18 pairs) through
+   ``CorpusRunner(root, engine, band, mode="fused", device="cuda")`` for the
+   four online engines, each sweep one batched launch (B = 18); every
+   pair's path equal to solo ``align_pair(mode="fused")`` (all 18 for
+   livenote_v2_diff, the sonata_allegro pairs for the others, one launch
+   each); the kernel equal to the plain version on sonata_allegro _01/_00
+   for each engine and over the whole otw sweep; one pair above 12,000
+   combined frames (recordings of several pieces back to back) in one
+   launch, equal to plain; the kernel's time at B = 1 and B = 18 (profiler, CUDA
+   events, plain, bound) and one traced sweep.
 
 The builds run in parallel (one ``nvcc`` per source).  Then one JSON line
 of per-kernel results, and last ``{"ok": true, "device": {...}}``.
@@ -68,11 +85,21 @@ KERNELS = {
     "otw_insert_block": ("otw_insert", f"{CSRC}/otw_insert.cu", "real_time_audio_sync_tpu/ops/pallas_otw.py:803"),
     "wavefront_dp": ("wavefront", f"{CSRC}/wavefront.cu", "real_time_audio_sync_tpu/ops/pallas_wavefront.py:111"),
     "wavefront_backtrack": ("wavefront", f"{CSRC}/wavefront.cu", "real_time_audio_sync_tpu/ops/pallas_wavefront.py:181"),
+    # kernels #2 (solo, B = 1) and #3 (batched) are one CUDA kernel
+    "otw_set_live": ("otw_set_live", f"{CSRC}/otw_set_live.cu", "real_time_audio_sync_tpu/ops/pallas_otw.py:387"),
+    "otw_batched_set_live": ("otw_set_live", f"{CSRC}/otw_set_live.cu",
+                             "real_time_audio_sync_tpu/ops/pallas_otw.py:505"),
 }
 # the card's published peaks (H100 SXM data sheet, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
 WAVEFRONT_SHAPES = ((1, 1), (1, 7), (7, 1), (5, 7), (33, 20), (40, 65))
+SWEEP_BAND = {"search_band_width": 50, "max_run_count": 3}  # tests.py:140
+SET_LIVE_SCENARIOS = ("runs_out", "stop", "capacity")
+# combined frames at which the JAX package sends a pair to its streaming
+# engine instead of its set_live kernel (pallas_otw.py:422); phase 8 runs a
+# pair above it through the port's set_live kernel
+LONG_PAIR_FRAMES = 12000
 
 
 def log(msg: str) -> None:
@@ -538,6 +565,275 @@ def phase_dtw_main_path(device, root: str):
     return out
 
 
+def set_live_pair(rng, variant: str, c: int, scenario: str):
+    """(ref (12, n), live (12, L)) for one set_live comparison.
+
+    ``"runs_out"``: a tempo-warped rendition of the first 80 % of the
+    reference, so live ends before j reaches the end.  ``"stop"``: a
+    rendition of the whole reference (1.25× its length) followed by
+    unrelated columns, ≈ 2.6× the reference in all, so j passes the end
+    first.  ``"capacity"``: live stuck on the first reference frame for more
+    than the 2n live capacity (as phase 3)."""
+    import numpy as np
+
+    if scenario == "capacity":
+        return stream(rng, variant, 3 * c + 30, "capacity")
+    n = c + 30
+    ref = unit_cols(rng.random((12, n)) + 0.05)
+    span, stretch = (0.8, 1.0) if scenario == "runs_out" else (1.0, 1.25)
+    n_live = int(n * span * stretch)
+    pos = np.cumsum(rng.uniform(0.5, 1.5, n_live))
+    pos = pos / pos[-1] * (span * n - 1)
+    live = unit_cols(ref[:, np.round(pos).astype(int)] + 0.01 * rng.random((12, n_live)))
+    if scenario == "stop":
+        live = np.concatenate([live, unit_cols(rng.random((12, int(1.35 * n))) + 0.05)], axis=1)
+    if variant == "livenote_v2_diff":  # Euclidean cost on chroma-diff features
+        ref = np.clip(np.diff(ref, axis=1), 0, np.inf).astype(np.float32)
+        live = np.clip(np.diff(live, axis=1), 0, np.inf).astype(np.float32)
+    return ref, live
+
+
+def set_live_cfg(variant: str, c: int, mrc: int = 3):
+    from real_time_audio_sync_tpu_torch.models.online_core import ENGINE_OVERRIDES, OnlineConfig
+
+    return OnlineConfig(c=c, max_run_count=mrc, **ENGINE_OVERRIDES[variant])
+
+
+def compare_set_live(refs, lives, cfg, what: str):
+    """The kernel and the plain version on one packed batch of card-resident
+    pairs: raises unless path, plen, t, j and stopped are equal; returns
+    (the kernel's out rows, the plain version's seconds, the largest
+    absolute difference, 0 when equal)."""
+    import torch
+
+    from real_time_audio_sync_tpu_torch.ops import otw_set_live
+
+    packed = otw_set_live.pack(refs, lives, cfg.c)
+    kern = otw_set_live.batched_set_live(*packed, cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain = otw_set_live.batched_set_live_reference(*packed, cfg)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    for name, x, y in zip(("path_x", "path_y", "out"), kern, plain):
+        if not torch.equal(x, y):
+            raise AssertionError(f"{what}: kernel and plain disagree on {name} (max |diff| {max_abs_diff(x, y)})")
+    return kern[2].cpu().tolist(), plain_s, max(max_abs_diff(x, y) for x, y in zip(kern, plain))
+
+
+def same_result(a, b) -> bool:
+    import numpy as np
+
+    return a[0].shape == b[0].shape and np.array_equal(a[0], b[0]) and tuple(a[1:]) == tuple(b[1:])
+
+
+def phase_set_live_vs_plain(device) -> None:
+    """Phase 7: the set_live kernel against its plain version on the card."""
+    import numpy as np
+    import torch
+
+    from real_time_audio_sync_tpu_torch.models.online_core import ENGINE_OVERRIDES
+    from real_time_audio_sync_tpu_torch.ops import otw_set_live
+
+    t0 = time.perf_counter()
+    cases = 0
+    for vi, variant in enumerate(VARIANTS):
+        for c in BANDS:
+            for si, scenario in enumerate(SET_LIVE_SCENARIOS):
+                rng = np.random.default_rng(7000 + 100 * vi + 10 * c + si)
+                ref, live = set_live_pair(rng, variant, c, scenario)
+                cfg = set_live_cfg(variant, c, 5 if scenario == "capacity" else 3)
+                what = f"{variant} c={c} {scenario}"
+                ((plen, t, j, stopped, *_),), _, _ = compare_set_live(
+                    [torch.from_numpy(ref).to(device)], [torch.from_numpy(live).to(device)], cfg, f"phase 7 [{what}]")
+                n, n_live = ref.shape[1], live.shape[1]
+                want = {"runs_out": t == n_live and not stopped, "stop": stopped == 1 and j == n and t < n_live,
+                        "capacity": t == 2 * n and not stopped and j < n}[scenario]
+                if not want:
+                    raise AssertionError(f"phase 7 [{what}]: outcome (plen {plen}, t {t}, j {j}, stopped {stopped}) "
+                                         f"is not '{scenario}' for n {n}, live {n_live}")
+                cases += 1
+    log(f"phase 7: set_live kernel == plain on the card in all {cases} cases ({len(VARIANTS)} variants x bands "
+        f"{BANDS} x {SET_LIVE_SCENARIOS}; path, plen, t, j, stopped equal), {time.perf_counter() - t0:.1f} s")
+
+    params = {"c": 50, "max_run_count": 3}
+    for vi, variant in enumerate(VARIANTS):
+        rng = np.random.default_rng(7500 + vi)
+        pairs = [set_live_pair(rng, variant, 50, SET_LIVE_SCENARIOS[i % 3]) for i in range(4)]
+        refs = [torch.from_numpy(r).to(device) for r, _ in pairs]
+        lives = [torch.from_numpy(l).to(device) for _, l in pairs]
+        compare_set_live(refs, lives, set_live_cfg(variant, 50), f"phase 7 [{variant} batch of 4]")
+        over = ENGINE_OVERRIDES[variant]
+        batched = otw_set_live.pallas_batched_set_live(refs, lives, params, **over, device=device)
+        for i, (r, l) in enumerate(zip(refs, lives)):
+            solo = otw_set_live.pallas_set_live(r, l, params, **over, device=device)
+            if not same_result(batched[i], solo):
+                raise AssertionError(f"phase 7 [{variant}]: pair {i} of the batch differs from the pair alone")
+        shared = otw_set_live.pack(refs[:1] * 3, lives[:3], 50)[0]
+        if shared.shape[0] != 1:
+            raise AssertionError("phase 7: a shared reference was packed more than once")
+        compare_set_live(refs[:1] * 3, lives[:3], set_live_cfg(variant, 50), f"phase 7 [{variant} shared ref x 3]")
+        for i, res in enumerate(otw_set_live.pallas_batched_set_live(refs[:1] * 3, lives[:3], params, **over,
+                                                                     device=device)):
+            if not same_result(res, otw_set_live.pallas_set_live(refs[0], lives[i], params, **over, device=device)):
+                raise AssertionError(f"phase 7 [{variant}]: shared-reference pair {i} differs from the pair alone")
+    log(f"phase 7: per variant, a ragged batch of 4 == kernel pair by pair == plain; shared reference x 3 "
+        f"(one copy) == plain == alone; {time.perf_counter() - t0:.1f} s in all")
+
+
+def set_live_bound(outs, c: int, f: int, euclidean: bool, rows: int):
+    """(bound ms, "bytes" or "operations", bytes, ops) of one launch whose
+    pairs ended at ``outs`` (plen, t, j, ...): the bytes are the ``rows``
+    feature rows read once, the path points and scalars written once; the
+    operations are, for each band update this run made (t + j − 1 a pair),
+    (c+1) cells of cost (2F+1), recurrence (5) and scan (3 a stage), and two
+    (c+1)-wide argmins for each committed point."""
+    import math
+
+    stages = math.ceil(math.log2(c + 1))
+    per_cell = (3 * f + 1 if euclidean else 2 * f + 1) + 5 + 3 * stages
+    updates = sum(t + j - 1 for _, t, j, *_ in outs)
+    points = sum(plen for plen, *_ in outs)
+    bytes_ = rows * f * 4 + len(outs) * (2 * 4 + 8 * 4) + points * 8
+    ops = updates * (c + 1) * per_cell + points * 2 * (c + 1)
+    t_bytes, t_ops = bytes_ / HBM_BYTES_PER_S * 1e3, ops / FP32_FLOPS * 1e3
+    return (t_bytes, "bytes", bytes_, ops) if t_bytes >= t_ops else (t_ops, "operations", bytes_, ops)
+
+
+def phase_set_live_main_path(device, root: str):
+    """Phase 8; returns {kernel name: (launches, max_abs_err, ms, event_ms,
+    plain_ms, bound_ms, bound_by)} for kernels #2 (B = 1) and #3 (B = 18)."""
+    import numpy as np
+    import torch
+
+    from real_time_audio_sync_tpu_torch.eval import corpus, synthetic
+    from real_time_audio_sync_tpu_torch.models.online_core import ENGINE_OVERRIDES
+    from real_time_audio_sync_tpu_torch.ops import otw_set_live
+
+    t0 = time.perf_counter()
+    synthetic.build_full_corpus(root)
+    pairs = corpus.corpus_pairs(root)
+    log(f"phase 8: full-scale corpus rendered: {len(synthetic.FULL_PIECES)} pieces, {len(pairs)} pairs, "
+        f"{time.perf_counter() - t0:.1f} s")
+    corpus._FEAT_CACHE.clear()
+    c = SWEEP_BAND["search_band_width"]
+    sweeps, sweep_launches, solo_launches = {}, 0, 0
+    for engine in VARIANTS:
+        torch.cuda.synchronize()
+        otw_set_live.launches = 0
+        t0 = time.perf_counter()
+        report = corpus.CorpusRunner(root, engine, SWEEP_BAND, mode="fused", device=device).evaluate(verbose=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = otw_set_live.launches
+        sweep_launches += launches
+        if launches != 1 or len(report.results) != len(pairs) or report.skipped:
+            raise AssertionError(f"phase 8 [{engine}]: {launches} launches for {len(report.results)} pairs "
+                                 f"({len(report.skipped)} skipped)")
+        for r in report.results:
+            if r.path.ndim != 2 or r.path.shape[1] != 2 or len(r.path) == 0 or tuple(r.path[0]) != (0, 0):
+                raise AssertionError(f"phase 8 [{engine}]: bad path {r.path.shape} for {os.path.basename(r.live_wav)}")
+        if not np.isfinite(report.mean_error):
+            raise AssertionError(f"phase 8 [{engine}]: mean error {report.mean_error}")
+        sweeps[engine] = report
+        worst = max(report.results, key=lambda r: (r.score.pct_off_beats[3], r.score.pct_off_3s))
+        log(f"phase 8 [{engine}]: CorpusRunner(mode='fused') over {len(report.results)} pairs in {launches} launch, "
+            f"wall {wall:.3f} s (features of every recording when first needed, the launch, PathScorer); "
+            f"mean error (% points >3 s off) {report.mean_error}; worst pair "
+            f"{os.path.basename(worst.live_wav)} vs {os.path.basename(worst.ref_wav)}: {len(worst.path)} points, "
+            f"pct_off_beats {worst.score.pct_off_beats}, pct_off_secs {worst.score.pct_off_secs}")
+
+    # batched == solo: every pair of the default engine, the sonata_allegro pairs of the others
+    for engine in VARIANTS:
+        report = sweeps[engine]
+        chosen = [r for r in report.results
+                  if engine == "livenote_v2_diff" or os.path.basename(r.ref_wav).startswith("sonata_allegro")]
+        for r in chosen:
+            otw_set_live.launches = 0
+            solo = corpus.align_pair(r.ref_wav, r.live_wav, engine, SWEEP_BAND, mode="fused", device=device)
+            if otw_set_live.launches != 1:
+                raise AssertionError(f"phase 8 [{engine}]: solo align_pair made {otw_set_live.launches} launches")
+            solo_launches += otw_set_live.launches
+            if not np.array_equal(solo.path, r.path):
+                raise AssertionError(f"phase 8 [{engine}]: {os.path.basename(r.live_wav)} batched path != solo")
+        log(f"phase 8 [{engine}]: batched == solo align_pair(mode='fused') on {len(chosen)} pairs, one launch each")
+
+    # the kernel against the plain version on _01 / _00
+    ref_wav = os.path.join(root, "sonata_allegro", "sonata_allegro_00.wav")
+    live_wav = os.path.join(root, "sonata_allegro", "sonata_allegro_01.wav")
+    plain_ms, worst = {}, 0.0
+    for engine in VARIANTS:
+        kind = "chroma_diff" if engine == "livenote_v2_diff" else "chroma"
+        ref = corpus._cached_chroma(ref_wav, np.float32, device, kind)
+        live = corpus._cached_chroma(live_wav, np.float32, device, kind)
+        cfg = set_live_cfg(engine, c)
+        ((plen, t, j, stopped, *_),), plain_s, err = compare_set_live([ref], [live], cfg,
+                                                                      f"phase 8 [{engine} _01/_00]")
+        plain_ms[engine] = plain_s * 1e3
+        worst = max(worst, err)
+        log(f"phase 8 [{engine}]: _01/_00 ({live.shape[1]} x {ref.shape[1]} frames): kernel == plain (path "
+            f"{plen} points, t {t}, j {j}, stopped {stopped}; plain {plain_s:.2f} s)")
+
+    # a pair above the JAX package's 12,000-frame long-pair threshold takes
+    # the same one launch: one recording of each of the first pieces, played
+    # back to back (a concert of several movements) against their references
+    firsts = {}
+    for r, l in pairs:
+        firsts.setdefault(os.path.dirname(r), (r, l))
+    long_ref, long_live = [], []
+    for r, l in firsts.values():
+        long_ref.append(corpus._cached_chroma(r, np.float32, device))
+        long_live.append(corpus._cached_chroma(l, np.float32, device))
+        if sum(x.shape[1] for x in long_ref + long_live) >= LONG_PAIR_FRAMES:
+            break
+    ref, live = torch.cat(long_ref, dim=1).contiguous(), torch.cat(long_live, dim=1).contiguous()
+    if ref.shape[1] + live.shape[1] < LONG_PAIR_FRAMES:
+        raise AssertionError(f"phase 8: the long pair has only {ref.shape[1] + live.shape[1]} frames")
+    cfg = set_live_cfg("otw", c)
+    ((plen, t, j, stopped, *_),), plain_s, err = compare_set_live([ref], [live], cfg, "phase 8 [otw long pair]")
+    worst = max(worst, err)
+    otw_set_live.launches = 0
+    got = otw_set_live.pallas_set_live(ref, live, SWEEP_BAND, **ENGINE_OVERRIDES["otw"], device=device)
+    if otw_set_live.launches != 1 or (len(got[0]), got[1], got[2], got[3]) != (plen, t, j, bool(stopped)):
+        raise AssertionError(f"phase 8 [otw long pair]: {otw_set_live.launches} launches, result {got[1:]} "
+                             f"({len(got[0])} points) against the packed kernel's {(plen, t, j, stopped)}")
+    log(f"phase 8 [otw]: long pair of {len(long_ref)} pieces back to back ({live.shape[1]} x {ref.shape[1]} "
+        f"frames, {ref.shape[1] + live.shape[1]} combined): one launch, kernel == plain (path {plen} points, "
+        f"t {t}, j {j}, stopped {stopped}; plain {plain_s:.2f} s)")
+
+    # times: kernel #2 at B = 1 on _01/_00, kernel #3 at B = 18 (the otw sweep), both otw
+    cfg = set_live_cfg("otw", c)
+    refs = [corpus._cached_chroma(r, np.float32, device) for r, _ in pairs]
+    lives = [corpus._cached_chroma(l, np.float32, device) for _, l in pairs]
+    _, sweep_plain_s, err = compare_set_live(refs, lives, cfg, "phase 8 [otw sweep, B = 18]")
+    worst = max(worst, err)
+    log(f"phase 8 [otw]: kernel == plain over the whole sweep (B = {len(pairs)}), plain {sweep_plain_s:.1f} s")
+    out = {}
+    for name, batch_refs, batch_lives, p_ms, n_launch in (
+        ("otw_set_live", [corpus._cached_chroma(ref_wav, np.float32, device)],
+         [corpus._cached_chroma(live_wav, np.float32, device)], plain_ms["otw"], solo_launches),
+        ("otw_batched_set_live", refs, lives, sweep_plain_s * 1e3, sweep_launches),
+    ):
+        packed = otw_set_live.pack(batch_refs, batch_lives, c)
+        reps = 20  # the profiler may miss the first few launches of a trace
+        event_ms = time_calls(lambda: otw_set_live.batched_set_live(*packed, cfg), reps)
+        dev_ms, traced = kernel_device_ms(lambda r: otw_set_live.batched_set_live(*packed, cfg), reps,
+                                          "otw_set_live_kernel")
+        outs = otw_set_live.batched_set_live(*packed, cfg)[2].cpu().tolist()
+        rows = sum(x.shape[1] for x in batch_refs) + sum(x.shape[1] for x in batch_lives)
+        bound_ms, bound_by, bytes_, ops = set_live_bound(outs, c, 12, False, rows)
+        out[name] = (n_launch, worst, dev_ms, event_ms, p_ms, bound_ms, bound_by)
+        log(f"phase 8 [{name}] B = {len(batch_lives)}, otw, c = {c}: device time "
+            f"{'not measured' if dev_ms is None else f'{dev_ms:.4f} ms'} (profiler, {traced} of {reps} launches "
+            f"traced), {event_ms:.4f} ms back to back (CUDA events), plain {p_ms:.1f} ms; bound {bound_ms:.6f} ms "
+            f"by {bound_by} ({bytes_} B, {ops} ops; {sum(o[1] + o[2] - 1 for o in outs)} band updates, "
+            f"{sum(o[0] for o in outs)} points)")
+    corpus._FEAT_CACHE.clear()
+    trace_run(lambda: corpus.CorpusRunner(root, "livenote_v2_diff", SWEEP_BAND, mode="fused",
+                                          device=device).evaluate(verbose=False), "phase 8 [trace]")
+    return out
+
+
 def otw_insert_bound_ms(c: int = PARAMS["c"], k: int = 8, f: int = 12) -> float:
     """Bytes of one k_block-k launch at band c over the memory rate: the
     window in and out, the k columns in and live rows out, the k + c + 1
@@ -578,10 +874,13 @@ def main() -> int:
     worst = phase_kernel_vs_plain(device)
     phase_wavefront_vs_plain(device)
 
+    phase_set_live_vs_plain(device)
+
     with tempfile.TemporaryDirectory() as root:
         ref_wav, live_wav = render_piece(root)
         launches, timings = phase_main_path(device, ref_wav, live_wav)
         wf = phase_dtw_main_path(device, root)
+        sl = phase_set_live_main_path(device, root)
 
     # "ms" is each kernel's device time per launch (profiler; the CUDA-event
     # time when the trace holds none); otw_insert_block's at k_block 8,
@@ -589,6 +888,7 @@ def main() -> int:
     kern_ms, dev_ms, plain_ms = timings[8]
     rows = {"otw_insert_block": (launches, worst, dev_ms, kern_ms, plain_ms, otw_insert_bound_ms(), "bytes")}
     rows.update(wf)
+    rows.update(sl)
     kernels = []
     for name, (n_launch, err, d_ms, e_ms, p_ms, b_ms, b_by) in rows.items():
         _, source, replaces = KERNELS[name]
@@ -598,7 +898,7 @@ def main() -> int:
             "ms": e_ms if d_ms is None else d_ms,
             "ms_from": "cuda events" if d_ms is None else "profiler device time",
             "event_ms": e_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": None,  # no single PyTorch call computes these recurrences
+            "library_ms": None,  # no PyTorch call computes these recurrences
         })
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

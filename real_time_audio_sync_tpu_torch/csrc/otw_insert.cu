@@ -16,21 +16,17 @@
 // from the same reduced values; device memory sees only the feature rows
 // (F floats each), the path points and the window's load and store.
 //
-// Numerics (see ops/otw_insert.py): costs are sequential float32 sums over
-// f with explicit round-to-nearest intrinsics (no contraction to FMA, also
-// built with --fmad=false); the min-plus scan runs _minplus_doubling's
-// stages in order; argmins keep the first minimum among valid cells.
-// IEEE infinities are the LiveNote sentinels, so no fast-math.
+// The band primitives and their numerics are in otw_band.cuh, shared with
+// the whole-pair set_live kernel (otw_set_live.cu).
 
-#include <cuda_runtime.h>
+#include "otw_band.cuh"
 
 namespace {
 
-constexpr int ROW = 0, COL = 1, BOTH = 2;
+using namespace otw_band;
+
 constexpr int S_T = 0, S_J = 1, S_RC = 2, S_PREV = 3, S_PLEN = 4, S_LASTX = 5,
               S_LASTY = 6, S_FIRST = 7, S_STOPPED = 8, S_DIR = 9, S_OVERFLOW = 10;
-constexpr int MAX_WARPS = 32;
-constexpr int NO_INDEX = 0x7fffffff;
 
 struct Params {
   float* w;            // (L, L) window, canonical layout, L = c + 1
@@ -46,83 +42,11 @@ struct Params {
   int max_run_count, monotone, euclidean, loop_iters;
 };
 
-__device__ __forceinline__ float cost_of(const float* rows, const float* fixed, int f, bool euclidean) {
-  float s = 0.0f;
-  if (euclidean) {
-    for (int i = 0; i < f; ++i) {
-      float d = __fsub_rn(rows[i], fixed[i]);
-      s = __fadd_rn(s, __fmul_rn(d, d));
-    }
-    return __fsqrt_rn(s);
-  }
-  for (int i = 0; i < f; ++i) s = __fadd_rn(s, __fmul_rn(rows[i], fixed[i]));
-  return __fsub_rn(1.0f, s);
-}
-
-// (value, index) lexicographic minimum: the first minimum wins.
-__device__ __forceinline__ void take_min(float& v, int& i, float v2, int i2) {
-  if (v2 < v || (v2 == v && i2 < i)) {
-    v = v2;
-    i = i2;
-  }
-}
-
-struct Ring {
-  int L, ro, co;
-  __device__ __forceinline__ int at(int a, int b) const {
-    int pa = a + ro;
-    if (pa >= L) pa -= L;
-    int pb = b + co;
-    if (pb >= L) pb -= L;
-    return pa * L + pb;
-  }
-};
-
-// One band over positions 0..c: bvec = min(prev + cost, diag + 2 cost) with
-// the diagonal masked at 0 and at no_diag_at, band [lo, c], first-cell
-// neighbour `init`, then the min-plus scan.  Returns this thread's new cell
-// (valid for tid <= c).  Ends after a barrier.
-__device__ float band_step(float cost, float prev, float diag, int lo, float init,
-                           float sentinel, int c, float* rbuf, float* cbuf, int nt) {
-  const int tid = threadIdx.x;
-  const float inf = __int_as_float(0x7f800000);
-  if (tid <= c) {
-    bool band = tid >= lo;
-    float bvec = fminf(__fadd_rn(prev, cost), __fadd_rn(diag, __fmul_rn(2.0f, cost)));
-    float bm = band ? bvec : inf;
-    float cm = band ? cost : inf;
-    if (tid == lo) bm = fminf(bm, __fadd_rn(init, cm));
-    rbuf[tid] = bm;
-    cbuf[tid] = cm;
-  }
-  __syncthreads();
-  int src = 0;
-  for (int shift = 1; shift <= c; shift <<= 1) {
-    if (tid <= c) {
-      float rv = rbuf[src * nt + tid];
-      float cv = cbuf[src * nt + tid];
-      if (tid >= shift) {
-        rv = fminf(rv, __fadd_rn(rbuf[src * nt + tid - shift], cv));
-        cv = __fadd_rn(cbuf[src * nt + tid - shift], cv);
-      }
-      rbuf[(src ^ 1) * nt + tid] = rv;
-      cbuf[(src ^ 1) * nt + tid] = cv;
-    }
-    __syncthreads();
-    src ^= 1;
-  }
-  float out = sentinel;
-  if (tid <= c && tid >= lo) out = rbuf[src * nt + tid];
-  return out;
-}
-
 __global__ void otw_insert_kernel(Params p) {
   extern __shared__ float smem[];
   const int c = p.c, L = c + 1, f = p.f;
   const int tid = threadIdx.x, nt = blockDim.x;
-  const int lane = tid & 31, warp = tid >> 5, nwarps = nt >> 5;
   const bool eu = p.euclidean != 0;
-  const float inf = __int_as_float(0x7f800000);
   const float sentinel = p.sentinel;
 
   float* W = smem;                       // L * L
@@ -134,9 +58,9 @@ __global__ void otw_insert_kernel(Params p) {
   for (int i = tid; i < L * L; i += nt) W[i] = p.w[i];
   Ring ring{L, 0, 0};
 
-  int t = p.scalars[S_T], j = p.scalars[S_J], rc = p.scalars[S_RC];
-  int prev = p.scalars[S_PREV], plen = p.scalars[S_PLEN];
-  int lastx = p.scalars[S_LASTX], lasty = p.scalars[S_LASTY];
+  int t = p.scalars[S_T], j = p.scalars[S_J];
+  Walk w{p.scalars[S_RC], p.scalars[S_PREV], p.scalars[S_PLEN], p.scalars[S_LASTX],
+         p.scalars[S_LASTY]};
   bool first = p.scalars[S_FIRST] != 0, stopped = p.scalars[S_STOPPED] != 0;
   int direction = p.scalars[S_DIR];
   bool overflow = p.scalars[S_OVERFLOW] != 0;
@@ -163,19 +87,8 @@ __global__ void otw_insert_kernel(Params p) {
       if (do_row) {
         for (int i = tid; i < f; i += nt) p.live[(size_t)(t_new + c) * f + i] = col[i];
         __syncthreads();
-        // advance one live row: logical row c-1 is the old row c, the new
-        // row c reuses the old row 0's storage
-        ring.ro = (ring.ro + 1 == L) ? 0 : ring.ro + 1;
-        float cost = 0.0f, up = 0.0f, diag = inf;
-        if (tid <= c) {
-          cost = cost_of(p.ref + (size_t)(j + tid) * f, p.live + (size_t)(t_new + c) * f, f, eu);
-          up = W[ring.at(c - 1, tid)];
-          if (tid > 0 && tid != c - j) diag = W[ring.at(c - 1, tid - 1)];
-        }
-        float v = band_step(cost, up, diag, max(c - j, 1), j >= c ? sentinel : inf, sentinel,
-                            c, rbuf, cbuf, nt);
-        if (tid <= c) W[ring.at(c, tid)] = v;
-        __syncthreads();
+        row_update(W, ring, p.ref, p.live + (size_t)(t_new + c) * f, j, c, f, eu, sentinel,
+                   rbuf, cbuf, nt);
       }
     }
 
@@ -190,65 +103,11 @@ __global__ void otw_insert_kernel(Params p) {
           active = false;
           break;
         }
-        // advance one ref column: the new column c reuses the old column 0
-        ring.co = (ring.co + 1 == L) ? 0 : ring.co + 1;
-        float cost = 0.0f, left = 0.0f, diag = inf;
-        if (tid <= c) {
-          cost = cost_of(p.live + (size_t)(t_new + tid) * f, p.ref + (size_t)(j + c) * f, f, eu);
-          left = W[ring.at(tid, c - 1)];
-          if (tid > 0 && tid != c - t_new) diag = W[ring.at(tid - 1, c - 1)];
-        }
-        float v = band_step(cost, left, diag, max(c - t_new, 1), t_new >= c ? sentinel : inf,
-                            sentinel, c, rbuf, cbuf, nt);
-        if (tid <= c) W[ring.at(tid, c)] = v;
-        __syncthreads();
+        col_update(W, ring, p.live, p.ref + (size_t)(j + c) * f, t_new, c, f, eu, sentinel,
+                   rbuf, cbuf, nt);
       }
-
-      // best point: first minimum of window row c over lanes [b0, c] and of
-      // window column c over sublanes [a0, c]
-      const int b0 = max(c - j, 1), a0 = max(c - t_new, 1);
-      float rv = inf, cv = inf;
-      int ri = NO_INDEX, ci = NO_INDEX;
-      if (tid <= c && tid >= b0) { rv = W[ring.at(c, tid)]; ri = tid; }
-      if (tid <= c && tid >= a0) { cv = W[ring.at(tid, c)]; ci = tid; }
-      for (int off = 16; off > 0; off >>= 1) {
-        take_min(rv, ri, __shfl_down_sync(0xffffffffu, rv, off), __shfl_down_sync(0xffffffffu, ri, off));
-        take_min(cv, ci, __shfl_down_sync(0xffffffffu, cv, off), __shfl_down_sync(0xffffffffu, ci, off));
-      }
-      if (lane == 0) {
-        red_v[warp] = rv; red_i[warp] = ri;
-        red_v[MAX_WARPS + warp] = cv; red_i[MAX_WARPS + warp] = ci;
-      }
-      __syncthreads();
-      float cost_j = red_v[0], cost_t = red_v[MAX_WARPS];
-      int bj = red_i[0], ak = red_i[MAX_WARPS];
-      for (int wi = 1; wi < nwarps; ++wi) {
-        take_min(cost_j, bj, red_v[wi], red_i[wi]);
-        take_min(cost_t, ak, red_v[MAX_WARPS + wi], red_i[MAX_WARPS + wi]);
-      }
-      __syncthreads();  // the slots are rewritten by the next round
-
-      const bool use_row = cost_j < cost_t;
-      const int x = use_row ? t_new : t_new - c + ak;
-      const int y = use_row ? j - c + bj : j;
-      if (!p.monotone || plen == 0 || (x > lastx && y >= lasty)) {
-        if (tid == 0 && plen < p.p_len) {
-          p.path_x[plen] = x;
-          p.path_y[plen] = y;
-        }
-        ++plen;
-        lastx = x;
-        lasty = y;
-      }
-      if (t_new < c) {
-        d = BOTH;
-      } else if (rc >= p.max_run_count) {
-        d = prev == ROW ? COL : ROW;
-      } else {
-        d = x < t_new ? COL : (y < j ? ROW : BOTH);
-      }
-      rc = d == prev ? rc + 1 : 1;
-      if (d != BOTH) prev = d;
+      d = set_direction(W, ring, t_new, j, c, w, p.path_x, p.path_y, p.p_len, p.monotone != 0,
+                        p.max_run_count, red_v, red_i);
       active = d == COL;
     }
     direction = d;
@@ -259,12 +118,12 @@ __global__ void otw_insert_kernel(Params p) {
   __syncthreads();
   for (int i = tid; i < L * L; i += nt) p.w[i] = W[ring.at(i / L, i % L)];
   if (tid == 0) {
-    p.scalars[S_T] = t; p.scalars[S_J] = j; p.scalars[S_RC] = rc; p.scalars[S_PREV] = prev;
-    p.scalars[S_PLEN] = plen; p.scalars[S_LASTX] = lastx; p.scalars[S_LASTY] = lasty;
+    p.scalars[S_T] = t; p.scalars[S_J] = j; p.scalars[S_RC] = w.rc; p.scalars[S_PREV] = w.prev;
+    p.scalars[S_PLEN] = w.plen; p.scalars[S_LASTX] = w.lastx; p.scalars[S_LASTY] = w.lasty;
     p.scalars[S_FIRST] = first ? 1 : 0; p.scalars[S_STOPPED] = stopped ? 1 : 0;
     p.scalars[S_DIR] = direction; p.scalars[S_OVERFLOW] = overflow ? 1 : 0;
     p.status[0] = (stopped ? 1 : 0) | (overflow ? 2 : 0);
-    p.status[1] = plen; p.status[2] = lastx; p.status[3] = lasty;
+    p.status[1] = w.plen; p.status[2] = w.lastx; p.status[3] = w.lasty;
     p.status[4] = 0; p.status[5] = 0; p.status[6] = 0; p.status[7] = 0;
   }
 }

@@ -9,11 +9,15 @@ Examples::
     # corpus sweep (test_all equivalent), on the CPU
     python -m real_time_audio_sync_tpu_torch.eval --corpus Songs/ --device cpu
 
+    # an online engine over the whole corpus in one set_live launch
+    python -m real_time_audio_sync_tpu_torch.eval --corpus Songs/ --engine livenote_v2_diff --mode fused
+
     # score a recorded field log against ground-truth CSVs
     python -m real_time_audio_sync_tpu_torch.eval --score-log tests/x.txt --ref-csv a.csv --live-csv b.csv
 
-Only ``--engine dtw`` (the default) is ported so far; the other engines
-raise ``NotImplementedError`` naming their ROADMAP.md item.
+Ported so far: ``--engine dtw`` (the default) and, with ``--mode fused``,
+the online engines otw, livenote, livenote_v2 and livenote_v2_diff; the
+rest raise ``NotImplementedError`` naming their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -28,7 +32,8 @@ def main(argv=None) -> int:
     ap.add_argument("--ref", help="reference recording (wav)")
     ap.add_argument("--live", help="live recording (wav)")
     ap.add_argument("--engine", default="dtw", help=(
-        "dtw|otw|livenote|livenote_v2|livenote_v2_diff|wtw (default: dtw, the only one ported)"))
+        "dtw|otw|livenote|livenote_v2|livenote_v2_diff|wtw (default: dtw, whose insert mode is ported; "
+        "the online engines run with --mode fused)"))
     ap.add_argument("--corpus", help="corpus directory (test_all sweep)")
     ap.add_argument("--field-log", help="recorded field log for the BSO cross-check during --corpus")
     ap.add_argument("--score-log", help="score a recorded field log instead of aligning")
@@ -36,7 +41,10 @@ def main(argv=None) -> int:
     ap.add_argument("--live-csv", help="ground-truth CSV for --score-log (live side)")
     ap.add_argument("--dtype", default="float32", choices=["float32", "float64"])
     ap.add_argument("--mode", default="insert", choices=["insert", "fused", "oracle"],
-                    help="insert: the reference harness regime; fused and oracle are not ported yet")
+                    help="insert: stream frame-by-frame (reference harness regime); "
+                         "fused: whole alignment through the fused device backends "
+                         "(set_live for the online engines; a corpus sweep batches ALL "
+                         "pairs into one launch)")
     ap.add_argument("--device", default="cuda", help="torch device to align on (default: cuda)")
     args = ap.parse_args(argv)
 

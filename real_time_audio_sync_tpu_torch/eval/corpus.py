@@ -1,7 +1,7 @@
 """Pair and corpus evaluation runners (reference tests.py:143-262,
 test_simple.py:94-198; the JAX package's ``eval/corpus.py:31-473``).
 
-``align_pair`` extracts the chroma of both recordings on ``device``,
+``align_pair`` extracts the features of both recordings on ``device``,
 aligns them with the chosen engine and scores the path against beat
 ground truth.  ``CorpusRunner`` mirrors ``test_all``: walk the corpus
 directory, form all i<j recording pairs per piece (skipping ``_20b``
@@ -11,11 +11,12 @@ when one is given (tests.py:245-251).  Pairs with missing audio are
 reported and skipped.
 
 Ported so far: ``engine="dtw"`` (offline DTW, the wavefront kernels on a
-CUDA device).  The other engines and modes raise ``NotImplementedError``
-naming their ROADMAP.md item: the online engines' streaming insert mode
-(Queue 1 item 1), ``mode="fused"`` (item 3) and WTW (item 7).  The
-engine parameters, the WTW defaults and the raw-audio memo arrive with
-those engines.
+CUDA device) and ``mode="fused"`` of the online engines (otw, livenote,
+livenote_v2, livenote_v2_diff: whole-pair set_live, the set_live kernel on
+a CUDA device; a corpus sweep of two or more pairs is one batched
+launch).  The online engines' streaming insert mode (Queue 1 item 1) and
+WTW (item 7) raise ``NotImplementedError`` naming their ROADMAP.md item;
+the WTW defaults and the raw-audio memo kind arrive with WTW.
 """
 
 from __future__ import annotations
@@ -31,34 +32,43 @@ import torch
 from real_time_audio_sync_tpu_torch.eval.ground_truth import GroundTruth
 from real_time_audio_sync_tpu_torch.eval.logs import path_from_field_log
 from real_time_audio_sync_tpu_torch.eval.scorer import PathScorer, ScoreResult
-from real_time_audio_sync_tpu_torch.features.chroma import wav_to_chroma
+from real_time_audio_sync_tpu_torch.features.chroma import wav_to_chroma, wav_to_chroma_diff
 from real_time_audio_sync_tpu_torch.models.dtw import _DENSE_BYTES_PER_CELL, _dense_limit_bytes, dtw_auto, dtw_device
 from real_time_audio_sync_tpu_torch.models.online_core import ENGINE_OVERRIDES
+from real_time_audio_sync_tpu_torch.ops.otw_set_live import pallas_batched_set_live, pallas_set_live
 
 DEFAULT_PARAMS = {"search_band_width": 50, "max_run_count": 3}  # tests.py:140
 
 ENGINES = ("dtw", "otw", "livenote", "livenote_v2", "livenote_v2_diff", "wtw")
 PORTED_ENGINES = ("dtw",)
 
-# Chroma memo for corpus sweeps: each recording appears in up to |recs|−1
-# pairs of a sweep.  Keyed by (path, mtime, dtype, device); LRU
-# oldest-first eviction.
+# Feature memo for corpus sweeps: each recording appears in up to |recs|−1
+# pairs of a sweep and in every engine of it.  Keyed by (path, mtime, kind,
+# dtype, device), kind "chroma" or "chroma_diff"; LRU oldest-first
+# eviction.
 _FEAT_CACHE: "OrderedDict[tuple, torch.Tensor]" = OrderedDict()
 _FEAT_CACHE_MAX = 64
 
 
-def _cached_chroma(path: str, dtype, device) -> torch.Tensor:
-    """The (12, T) chroma tensor of ``path`` on ``device``, memoised."""
+def _cached_chroma(path: str, dtype, device, kind: str = "chroma") -> torch.Tensor:
+    """The (12, T) chroma, or (12, T-1) chroma-diff, tensor of ``path`` on
+    ``device``, memoised."""
     device = torch.device(device)
-    key = (os.path.abspath(path), os.path.getmtime(path), np.dtype(dtype).name, str(device))
+    key = (os.path.abspath(path), os.path.getmtime(path), kind, np.dtype(dtype).name, str(device))
     if key in _FEAT_CACHE:
         _FEAT_CACHE.move_to_end(key)  # refresh recency
         return _FEAT_CACHE[key]
-    value = wav_to_chroma(path, dtype=torch.from_numpy(np.zeros(0, dtype)).dtype, device=device)
+    extract = {"chroma": wav_to_chroma, "chroma_diff": wav_to_chroma_diff}[kind]
+    value = extract(path, dtype=torch.from_numpy(np.zeros(0, dtype)).dtype, device=device)
     while len(_FEAT_CACHE) >= _FEAT_CACHE_MAX:
         _FEAT_CACHE.popitem(last=False)  # oldest-first
     _FEAT_CACHE[key] = value
     return value
+
+
+def _feature_kind(engine: str) -> str:
+    """livenote_v2_diff aligns chroma-diff (tests.py:156), the rest chroma."""
+    return "chroma_diff" if engine == "livenote_v2_diff" else "chroma"
 
 
 @dataclasses.dataclass
@@ -74,6 +84,7 @@ def align_pair(
     ref_wav: str,
     live_wav: str,
     engine: str = "dtw",
+    params: Optional[dict] = None,
     dtype=np.float32,
     mode: str = "insert",
     *,
@@ -84,8 +95,14 @@ def align_pair(
 
     ``engine="dtw"`` extracts both chromas, runs the dense offline DTW
     (``models/dtw.dtw_device``; the banded ``dtw_auto`` above the dense
-    byte budget) and fetches only the backtracked path.  Argument checks
-    are the JAX package's; the engines and modes not ported yet raise
+    byte budget) and fetches only the backtracked path.  ``mode="fused"``
+    with an online engine aligns the whole pair with
+    :func:`~real_time_audio_sync_tpu_torch.ops.otw_set_live.pallas_set_live`
+    (chroma-diff features for ``livenote_v2_diff``), band ``params`` or
+    :data:`DEFAULT_PARAMS` — the fast path for corpus sweeps; set_live's
+    direction-first loop can commit slightly different best points than
+    streaming insert, as in the reference.  Argument checks are the JAX
+    package's; the engines and modes not ported yet raise
     ``NotImplementedError``."""
     if engine not in ENGINES:
         raise ValueError(f"unknown engine {engine!r}; choose from {ENGINES}")
@@ -102,19 +119,19 @@ def align_pair(
                              "(the insert mode supports float64)")
     if engine == "wtw":
         raise NotImplementedError("align_pair(engine='wtw'): WTW is not ported yet: ROADMAP.md Queue 1, item 7")
-    if mode == "fused":
-        raise NotImplementedError(
-            f"align_pair({engine!r}, mode='fused'): whole-pair set_live is not ported yet: "
-            "ROADMAP.md Queue 1, item 3")
-    if engine != "dtw":
+    if engine != "dtw" and mode != "fused":
         raise NotImplementedError(
             f"align_pair({engine!r}): the online engines' streaming insert mode is not ported yet: "
             "ROADMAP.md Queue 1, item 1")
 
-    ref_seq = _cached_chroma(ref_wav, dtype, device)
-    live_seq = _cached_chroma(live_wav, dtype, device)
+    kind = _feature_kind(engine)
+    ref_seq = _cached_chroma(ref_wav, dtype, device, kind)
+    live_seq = _cached_chroma(live_wav, dtype, device, kind)
     m, n = live_seq.shape[1], ref_seq.shape[1]
-    if m * n * _DENSE_BYTES_PER_CELL > _dense_limit_bytes():
+    if engine != "dtw":  # an online engine, fused
+        path, _, _, _ = pallas_set_live(ref_seq, live_seq, params or DEFAULT_PARAMS, **ENGINE_OVERRIDES[engine],
+                                        device=device)
+    elif m * n * _DENSE_BYTES_PER_CELL > _dense_limit_bytes():
         # hour-scale pairs: the same delegation as the public DTW()
         path, _, _ = dtw_auto(live_seq, ref_seq, device=device)
     else:
@@ -162,28 +179,41 @@ class CorpusReport:
 
 
 class CorpusRunner:
-    """``test_all`` parity (tests.py:199-262): every present pair through
-    :func:`align_pair` in turn, on ``device``."""
+    """``test_all`` parity (tests.py:199-262), on ``device``: every present
+    pair through :func:`align_pair` in turn — or, for an online engine in
+    ``mode="fused"`` with two or more pairs, all of them through one
+    batched set_live launch."""
 
-    def __init__(self, recordings_dir: str, engine: str = "dtw", dtype=np.float32, mode: str = "insert", *,
-                 device="cuda"):
+    def __init__(self, recordings_dir: str, engine: str = "dtw", params: Optional[dict] = None,
+                 dtype=np.float32, mode: str = "insert", *, device="cuda"):
         self.recordings_dir = recordings_dir
         self.engine = engine
+        self.params = params
         self.dtype = dtype
-        self.mode = mode
+        self.mode = mode  # "insert" (reference regime) | "fused" (fast sweeps)
         self.device = device
 
     def evaluate(self, field_log: Optional[str] = None, verbose: bool = True) -> CorpusReport:
         results: List[PairResult] = []
         skipped: List[Tuple[str, str]] = []
+        present: List[Tuple[str, str]] = []
         for ref_wav, live_wav in corpus_pairs(self.recordings_dir):
-            if not (os.path.exists(ref_wav) and os.path.exists(live_wav)):
+            if os.path.exists(ref_wav) and os.path.exists(live_wav):
+                present.append((ref_wav, live_wav))
+            else:
                 skipped.append((ref_wav, live_wav))
-                continue
-            result = align_pair(ref_wav, live_wav, self.engine, self.dtype, mode=self.mode, device=self.device)
-            results.append(result)
-            if verbose:
-                self._print_result(result)
+
+        if self.engine in ENGINE_OVERRIDES and self.mode == "fused" and len(present) > 1:
+            # online engines: the whole sweep in ONE launch, a grid over
+            # pairs; per-pair paths equal solo align_pair's (tested)
+            results = self._evaluate_online_batched(present, verbose)
+        else:
+            for ref_wav, live_wav in present:
+                result = align_pair(ref_wav, live_wav, self.engine, self.params, self.dtype, mode=self.mode,
+                                    device=self.device)
+                results.append(result)
+                if verbose:
+                    self._print_result(result)
 
         # recorded-field-path cross-check (tests.py:245-251)
         field_check = None
@@ -214,12 +244,31 @@ class CorpusRunner:
             f">3b={s.pct_off_beats[3]:.2f}% >3s={s.pct_off_3s:.2f}%"
         )
 
+    def _evaluate_online_batched(self, pairs: List[Tuple[str, str]], verbose: bool) -> List[PairResult]:
+        """All pairs through :func:`pallas_batched_set_live` at once (one
+        launch on the card); per-pair paths equal solo
+        :func:`align_pair` ``(mode="fused")``."""
+        if np.dtype(self.dtype) != np.float32:
+            raise ValueError("mode='fused' runs the float32 device backends")
+        kind = _feature_kind(self.engine)
+        refs = [_cached_chroma(ref_wav, np.float32, self.device, kind) for ref_wav, _ in pairs]
+        lives = [_cached_chroma(live_wav, np.float32, self.device, kind) for _, live_wav in pairs]
+        aligned = pallas_batched_set_live(refs, lives, self.params or DEFAULT_PARAMS,
+                                          **ENGINE_OVERRIDES[self.engine], device=self.device)
+        results = []
+        for (ref_wav, live_wav), (path, _, _, _) in zip(pairs, aligned):
+            result = PairResult(ref_wav, live_wav, self.engine, path, PathScorer.for_pair(ref_wav, live_wav).score(path))
+            results.append(result)
+            if verbose:
+                self._print_result(result)
+        return results
+
 
 def run_simple(ref_wav: str, live_wav: str, engines: Sequence[str] = PORTED_ENGINES, dtype=np.float32,
                verbose: bool = True, *, device="cuda") -> Dict[str, PairResult]:
-    """The test_simple.py:94-198 smoke run: each engine on one pair, with
-    bucket accuracies.  By default the ported engines; raises at the first
-    engine that is not ported yet."""
+    """The test_simple.py:94-198 smoke run: each engine on one pair in the
+    insert mode, with bucket accuracies.  By default the ported engines;
+    raises at the first engine that is not ported yet."""
     out = {}
     for engine in engines:
         result = align_pair(ref_wav, live_wav, engine, dtype=dtype, device=device)

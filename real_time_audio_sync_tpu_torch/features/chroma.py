@@ -121,6 +121,23 @@ def wav_to_chroma(path_to_wav: str, dtype=torch.float32, *, device="cuda") -> to
     return chroma_from_samples(wav, dtype, device=device)
 
 
+def _half_wave_diff(chroma: torch.Tensor) -> torch.Tensor:
+    """Half-wave-rectified temporal difference (chroma.py:77-90)."""
+    return torch.clamp(torch.diff(chroma, dim=1), min=0)
+
+
+def wav_to_chroma_diff(path_to_wav: str, dtype=torch.float32, *, device="cuda") -> torch.Tensor:
+    """Reference ``wav_to_chroma_diff`` (chroma.py:77-90): (12, T-1)
+    half-wave-rectified temporal difference of the normalized chroma, on
+    ``device`` — LiveNoteV2's Euclidean-cost features."""
+    return _half_wave_diff(wav_to_chroma(path_to_wav, dtype, device=device))
+
+
+def chroma_diff_from_samples(wav, dtype=torch.float32, *, device="cuda") -> torch.Tensor:
+    """22.05 kHz mono samples → (12, T-1) chroma-diff on ``device``."""
+    return _half_wave_diff(chroma_from_samples(wav, dtype, device=device))
+
+
 def wav_to_chroma_col(wav_buf, dtype=torch.float32, *, device="cuda") -> torch.Tensor:
     """Reference ``wav_to_chroma_col`` (chroma.py:35-42): one fft_len-sample
     buffer → one 12-dim chroma column."""

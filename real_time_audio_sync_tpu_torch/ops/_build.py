@@ -4,7 +4,8 @@ with ``ctypes``.
 
 The build runs at first use, from the package's own sources, into
 ``csrc/build/`` (ignored by git); the library name carries a digest of the
-source and flags, so an edited source rebuilds.  A missing ``nvcc`` or a
+source, of every header in ``csrc/`` and of the flags, so an edited source
+or header rebuilds.  A missing ``nvcc`` or a
 failed build raises — nothing falls back.
 """
 
@@ -39,6 +40,10 @@ SIGNATURES = {
         ),
         "otw_error_string": ([_I], ctypes.c_char_p),
     },
+    "otw_set_live": {
+        "otw_set_live": ([_P] * 6 + [_I] * 7 + [ctypes.c_float] + [_I] * 4 + [_P], ctypes.c_int),
+        "otw_set_live_error_string": ([_I], ctypes.c_char_p),
+    },
     "wavefront": {
         "wavefront_dp": ([_P] * 3 + [_L] * 2 + [_I] * 4 + [ctypes.c_double] * 3 + [_I] * 4 + [_P], ctypes.c_int),
         "wavefront_backtrack": ([_P] * 3 + [_L] * 2 + [_I] * 8 + [_P], ctypes.c_int),
@@ -68,7 +73,11 @@ def find_nvcc() -> str:
 
 def _compile(name: str) -> tuple[Path, float, str]:
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:16]
     out = BUILD_DIR / f"lib{name}_{digest}.so"
     if out.exists():
         return out, 0.0, ""

@@ -39,6 +39,7 @@ import dataclasses
 from typing import Tuple
 
 import torch
+import torch.nn.functional as F
 
 from real_time_audio_sync_tpu_torch.models.online_core import BOTH, COL, PREV_NONE, ROW, OnlineConfig
 
@@ -183,13 +184,14 @@ def insert_block(state: OTWState, cols: torch.Tensor, lens: Tuple[int, int, int]
 def _cost(rows: torch.Tensor, fixed: torch.Tensor, euclidean: bool) -> torch.Tensor:
     """Cost of each of ``rows`` (m, F) against ``fixed`` (F,), summed
     sequentially over f as the kernel does."""
+    if euclidean:
+        d = rows - fixed
+        terms = d * d
+    else:
+        terms = rows * fixed
     s = torch.zeros(rows.shape[0], dtype=torch.float32, device=rows.device)
     for f in range(rows.shape[1]):
-        if euclidean:
-            d = rows[:, f] - fixed[f]
-            s = s + d * d
-        else:
-            s = s + rows[:, f] * fixed[f]
+        s = s + terms[:, f]
     return torch.sqrt(s) if euclidean else 1.0 - s
 
 
@@ -200,8 +202,8 @@ def _minplus_doubling(b: torch.Tensor, cost: torch.Tensor) -> torch.Tensor:
     r, csum = b, cost
     shift = 1
     while shift < n:
-        r_sh = torch.cat([torch.full((shift,), float("inf"), dtype=b.dtype, device=b.device), r[:-shift]])
-        c_sh = torch.cat([torch.zeros(shift, dtype=b.dtype, device=b.device), csum[:-shift]])
+        r_sh = F.pad(r[:-shift], (shift, 0), value=float("inf"))
+        c_sh = F.pad(csum[:-shift], (shift, 0))
         r = torch.minimum(r, r_sh + csum)
         csum = c_sh + csum
         shift *= 2
@@ -226,6 +228,65 @@ def _band_step(fresh_cost, prev_line, lo, neighbour_init, no_diag_at, sentinel):
     return torch.where(band, _minplus_doubling(b_m, c_m), sentinel)
 
 
+def row_update(w, ref, live, t: int, j: int, cfg: OnlineConfig) -> None:
+    """Advance the window ``w`` one live row (in place) and evaluate the row
+    band at live frame t against ref frames j-c..j (pallas_otw.py:226-248);
+    ``ref``/``live`` are the padded feature rows (row c+k ↔ frame k)."""
+    c, sentinel = cfg.c, float(cfg.sentinel)
+    w.copy_(torch.roll(w, -1, 0))  # W[a] ← W[a+1]
+    cost = _cost(ref[j : j + c + 1], live[t + c], cfg.euclidean)  # lane b ↔ ref j-c+b
+    w[c] = _band_step(cost, w[c - 1], max(c - j, 1), sentinel if j >= c else float("inf"), c - j, sentinel)
+
+
+def col_update(w, ref, live, t: int, j: int, cfg: OnlineConfig) -> None:
+    """Advance the window ``w`` one ref column (in place) and evaluate the
+    column band at ref frame j against live frames t-c..t
+    (pallas_otw.py:250-271)."""
+    c, sentinel = cfg.c, float(cfg.sentinel)
+    w.copy_(torch.roll(w, -1, 1))  # W[:, b] ← W[:, b+1]
+    cost = _cost(live[t : t + c + 1], ref[j + c], cfg.euclidean)  # sublane a ↔ live t-c+a
+    w[:, c] = _band_step(cost, w[:, c - 1], max(c - t, 1), sentinel if t >= c else float("inf"), c - t, sentinel)
+
+
+def best_point(w, t: int, j: int, c: int) -> Tuple[int, int]:
+    """First minimum of window row c over the band and of window column c
+    over the band; the row's wins only when strictly smaller
+    (pallas_otw.py:196-212)."""
+    b0, a0 = max(c - j, 1), max(c - t, 1)
+    row, col = w[c, b0:], w[a0:, c]
+    bj, ak = torch.argmin(row), torch.argmin(col)  # first minimum
+    cost_j, cost_t, bj, ak = torch.stack([row[bj], col[ak], bj.float(), ak.float()]).tolist()
+    if cost_j < cost_t:
+        return t, j - c + b0 + int(bj)
+    return t - c + a0 + int(ak), j
+
+
+def append_point(path_x, path_y, x: int, y: int, plen: int, lastx: int, lasty: int,
+                 cfg: OnlineConfig) -> Tuple[int, int, int]:
+    """Commit (x, y) at slot ``plen`` unless LiveNoteV2's monotone guard
+    rejects it (pallas_otw.py:181-194); a point past the buffer is counted
+    but not stored.  Returns ``(plen, lastx, lasty)``."""
+    if cfg.monotone_path and plen > 0 and not (x > lastx and y >= lasty):
+        return plen, lastx, lasty
+    if plen < path_x.shape[0]:
+        path_x[plen] = x
+        path_y[plen] = y
+    return plen + 1, x, y
+
+
+def set_direction(x: int, y: int, t: int, j: int, rc: int, prev: int, cfg: OnlineConfig) -> Tuple[int, int, int]:
+    """The next direction after best point (x, y) at (t, j) — startup, forced
+    or free — with the updated run count and previous direction
+    (pallas_otw.py:214-224): ``(d, rc, prev)``."""
+    if t < cfg.c:
+        d = BOTH
+    elif rc >= cfg.max_run_count:
+        d = COL if prev == ROW else ROW
+    else:
+        d = COL if x < t else (ROW if y < j else BOTH)
+    return d, (rc + 1 if d == prev else 1), (d if d != BOTH else prev)
+
+
 def insert_block_reference(state: OTWState, cols: torch.Tensor, lens: Tuple[int, int, int], cfg: OnlineConfig, k_block: int) -> None:
     """Plain PyTorch version of the kernel, on any device: the same window
     algorithm on tensors, with the scalar state machine of
@@ -238,30 +299,9 @@ def insert_block_reference(state: OTWState, cols: torch.Tensor, lens: Tuple[int,
     c = cfg.c
     w, ref, live = state.window, state.ref, state.live
     sentinel = float(cfg.sentinel)
-    inf = float("inf")
-    p_len = state.path_x.shape[0]
     sc = state.scalars.tolist()
     t, j, rc, prev, plen, lastx, lasty = (sc[s] for s in (S_T, S_J, S_RC, S_PREV, S_PLEN, S_LASTX, S_LASTY))
     first, stopped, direction, overflow = bool(sc[S_FIRST]), bool(sc[S_STOPPED]), sc[S_DIR], bool(sc[S_OVERFLOW])
-
-    def row_update(t, j):
-        w.copy_(torch.roll(w, -1, 0))  # W[a] ← W[a+1]
-        cost = _cost(ref[j : j + c + 1], live[t + c], cfg.euclidean)  # lane b ↔ ref j-c+b
-        w[c] = _band_step(cost, w[c - 1], max(c - j, 1), sentinel if j >= c else inf, c - j, sentinel)
-
-    def col_update(t, j):
-        w.copy_(torch.roll(w, -1, 1))  # W[:, b] ← W[:, b+1]
-        cost = _cost(live[t : t + c + 1], ref[j + c], cfg.euclidean)  # sublane a ↔ live t-c+a
-        w[:, c] = _band_step(cost, w[:, c - 1], max(c - t, 1), sentinel if t >= c else inf, c - t, sentinel)
-
-    def best_point(t, j):
-        b0, a0 = max(c - j, 1), max(c - t, 1)
-        row, col = w[c, b0:], w[a0:, c]
-        bj, ak = torch.argmin(row), torch.argmin(col)  # first minimum
-        cost_j, cost_t, bj, ak = torch.stack([row[bj], col[ak], bj.float(), ak.float()]).tolist()
-        if cost_j < cost_t:
-            return t, j - c + b0 + int(bj)
-        return t - c + a0 + int(ak), j
 
     for k in range(n_valid):
         if stopped:
@@ -277,7 +317,7 @@ def insert_block_reference(state: OTWState, cols: torch.Tensor, lens: Tuple[int,
             do_row = t_new < live_cap
             if do_row:
                 live[t_new + c] = cols[k]
-                row_update(t_new, j)
+                row_update(w, ref, live, t_new, j, cfg)
         active, d = do_row, direction
         for _ in range(cfg.loop_iters):
             if not active:
@@ -287,21 +327,10 @@ def insert_block_reference(state: OTWState, cols: torch.Tensor, lens: Tuple[int,
                 if j >= ref_len:
                     stopped, active = True, False
                     break
-                col_update(t_new, j)
-            x, y = best_point(t_new, j)
-            if not cfg.monotone_path or plen == 0 or (x > lastx and y >= lasty):
-                if plen < p_len:
-                    state.path_x[plen] = x
-                    state.path_y[plen] = y
-                plen, lastx, lasty = plen + 1, x, y
-            if t_new < c:
-                d = BOTH
-            elif rc >= cfg.max_run_count:
-                d = COL if prev == ROW else ROW
-            else:
-                d = COL if x < t_new else (ROW if y < j else BOTH)
-            rc = rc + 1 if d == prev else 1
-            prev = d if d != BOTH else prev
+                col_update(w, ref, live, t_new, j, cfg)
+            x, y = best_point(w, t_new, j, c)
+            plen, lastx, lasty = append_point(state.path_x, state.path_y, x, y, plen, lastx, lasty, cfg)
+            d, rc, prev = set_direction(x, y, t_new, j, rc, prev, cfg)
             active = d == COL
         direction = d
         overflow = overflow or active

@@ -1,6 +1,7 @@
 """The port's pair and corpus runners (``eval/corpus.py``) and their CLI
-(``eval/__main__.py``) with ``engine="dtw"`` on the CPU, against the JAX
-package's, on synthetic ``CASES`` pairs rendered from their seeds.
+(``eval/__main__.py``) on the CPU — ``engine="dtw"`` and the online
+engines' ``mode="fused"`` — against the JAX package's, on synthetic
+``CASES`` pairs rendered from their seeds.
 
 Each package on its own float32 frontend: the two chromas of a recording
 differ by float32 rounding, and the synthetic pieces hold each chord for a
@@ -14,6 +15,13 @@ So the slice is checked in parts:
   witness: the float32 differences come from the chroma alone);
 - each on its own float32 frontend, the chromas agree within 1e-5 and the
   points that moved are counted and printed (``-s``).
+
+The fused online engines are held the same way: fed the JAX frontend's
+chroma (or chroma-diff) the port's path equals JAX ``pallas_set_live``'s
+exactly; each on its own frontend both meet the synthetic corpus's bound
+(``tests/test_synthetic_corpus.py``: at most 10 % of points more than 3
+beats off).  JAX's set_live runs in the Pallas interpreter here, ~6 s a
+pair, so each engine takes one of the cases (``FUSED_CASES``).
 """
 
 import os
@@ -31,9 +39,10 @@ from real_time_audio_sync_tpu_torch.eval import corpus as tcorpus, synthetic  # 
 from real_time_audio_sync_tpu_torch.eval.__main__ import main as tmain  # noqa: E402
 from real_time_audio_sync_tpu_torch.eval.logs import write_field_log  # noqa: E402
 from real_time_audio_sync_tpu_torch.features import chroma as tchroma  # noqa: E402
-from real_time_audio_sync_tpu_torch.ops import wavefront as twf  # noqa: E402
+from real_time_audio_sync_tpu_torch.ops import otw_set_live as tsl, wavefront as twf  # noqa: E402
 
 PAIRS = ("steady", "dropout", "noisy", "jittered")
+ONLINE = ("otw", "livenote", "livenote_v2", "livenote_v2_diff")
 
 
 @pytest.fixture(scope="module")
@@ -109,8 +118,7 @@ def test_align_pair_argument_checks_and_unported_engines(cases):
     with pytest.raises(ValueError, match="float32"):
         tcorpus.align_pair(ref, live, "otw", mode="fused", dtype=np.float64, device="cpu")
     for engine, mode, item in (("otw", "insert", "item 1"), ("livenote_v2_diff", "insert", "item 1"),
-                               ("livenote_v2", "fused", "item 3"), ("wtw", "insert", "item 7"),
-                               ("wtw", "fused", "item 7")):
+                               ("wtw", "insert", "item 7"), ("wtw", "fused", "item 7")):
         with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue 1, {item}"):
             tcorpus.align_pair(ref, live, engine, mode=mode, device="cpu")
     with pytest.raises(NotImplementedError, match="item 1"):  # dtw runs, then otw raises
@@ -121,6 +129,60 @@ def test_align_pair_argument_checks_and_unported_engines(cases):
     got = tcorpus.run_simple(ref, live, verbose=False, device="cpu")
     assert list(got) == ["dtw"]
     _same_result(got["dtw"], tcorpus.align_pair(ref, live, device="cpu"))
+    # the online engines' fused mode is ported
+    fused = tcorpus.align_pair(ref, live, "livenote_v2", mode="fused", device="cpu")
+    assert fused.engine == "livenote_v2" and tuple(fused.path[0]) == (0, 0) and fused.score.count > 20
+
+
+# each engine on a case the synthetic corpus's bound holds for (the
+# adversarial cases break some engines: livenote_v2_diff under noise,
+# otw/livenote through a dropout)
+FUSED_CASES = (("otw", "steady"), ("livenote", "jittered"), ("livenote_v2", "noisy"),
+               ("livenote_v2_diff", "dropout"))
+
+
+@pytest.mark.parametrize("engine,name", FUSED_CASES)
+def test_align_pair_fused_matches_jax(cases, engine, name, monkeypatch, capsys):
+    ref, live = _pair(cases, name)
+    want = jcorpus.align_pair(ref, live, engine, mode="fused")  # JAX frontend + Pallas set_live (interpret)
+    # each on its own frontend: both within the synthetic corpus's bound
+    tsl.launches = 0
+    got = tcorpus.align_pair(ref, live, engine, mode="fused", device="cpu")
+    assert tsl.launches == 0  # the CPU runs the plain version
+    moved = set(map(tuple, got.path)) ^ set(map(tuple, want.path))
+    with capsys.disabled():
+        print(f"\n{engine} on {name}: own frontends: {len(moved)} points in one path only "
+              f"(port {len(got.path)}, JAX {len(want.path)} points)")
+    for r in (got, want):
+        assert r.score.count > 20 and r.score.pct_off_beats[3] <= 10.0, (r.engine, r.score.pct_off_beats)
+    # fed the JAX frontend's features, the port's path is JAX's
+    kind = "chroma_diff" if engine == "livenote_v2_diff" else "chroma"
+    jax_features = lambda path, dtype, *, device: torch.from_numpy(np.array(jcorpus._cached(kind, path, np.float32)))  # noqa: E731
+    monkeypatch.setattr(tcorpus, "wav_to_chroma_diff" if kind == "chroma_diff" else "wav_to_chroma", jax_features)
+    tcorpus._FEAT_CACHE.clear()
+    _same_result(tcorpus.align_pair(ref, live, engine, mode="fused", device="cpu"), want)
+
+
+def test_align_pair_takes_params_in_the_jax_position(cases):
+    """align_pair(ref, live, engine, params, dtype, mode) as the JAX package
+    orders them: the band given positionally is the one used."""
+    ref, live = _pair(cases, "steady")
+    band = {"c": 10, "max_run_count": 3}
+    got = tcorpus.align_pair(ref, live, "otw", band, np.float32, "fused", device="cpu")
+    want = tsl.pallas_set_live(tcorpus._cached_chroma(ref, np.float32, "cpu"),
+                               tcorpus._cached_chroma(live, np.float32, "cpu"), band, device="cpu")
+    np.testing.assert_array_equal(got.path, want[0])
+    default = tcorpus.align_pair(ref, live, "otw", mode="fused", device="cpu")  # c = 50
+    assert not np.array_equal(got.path, default.path)
+
+
+def test_wav_to_chroma_diff_matches_jax(cases):
+    ref, _ = _pair(cases, "dropout")
+    got = tchroma.wav_to_chroma_diff(ref, device="cpu")
+    want = np.asarray(jchroma.wav_to_chroma_diff(ref))
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5)
+    assert (got >= 0).all()
 
 
 @pytest.fixture(scope="module")
@@ -149,6 +211,35 @@ def test_corpus_runner_matches_jax(two_piece_corpus, capsys):
     assert got_out == want_out
 
 
+@pytest.mark.parametrize("engine", ONLINE)
+def test_corpus_runner_fused_batched_equals_solo(two_piece_corpus, engine):
+    """A fused sweep of two present pairs is one batched set_live; each
+    pair's path equals solo align_pair(mode="fused")."""
+    tsl.launches = 0
+    report = tcorpus.CorpusRunner(two_piece_corpus, engine, mode="fused", device="cpu").evaluate(verbose=False)
+    assert tsl.launches == 0
+    assert len(report.results) == 2 and len(report.skipped) == 1
+    for r in report.results:
+        solo = tcorpus.align_pair(r.ref_wav, r.live_wav, engine, mode="fused", device="cpu")
+        _same_result(r, solo)
+    assert np.isfinite(report.mean_error)
+
+
+def test_corpus_runner_fused_params_and_float64(two_piece_corpus):
+    band = {"c": 10, "max_run_count": 3}
+    report = tcorpus.CorpusRunner(two_piece_corpus, "otw", band, np.float32, "fused", device="cpu").evaluate(
+        verbose=False)
+    for r in report.results:
+        _same_result(r, tcorpus.align_pair(r.ref_wav, r.live_wav, "otw", band, mode="fused", device="cpu"))
+    for runner in (tcorpus.CorpusRunner(two_piece_corpus, "otw", dtype=np.float64, mode="fused", device="cpu"),
+                   tcorpus.CorpusRunner(two_piece_corpus, "otw", None, np.float64, "fused", device="cpu")):
+        with pytest.raises(ValueError, match="float32"):  # the batched path
+            runner.evaluate(verbose=False)
+    ref, live = _pair(two_piece_corpus, "steady")
+    with pytest.raises(ValueError, match="float32"):  # the solo path
+        tcorpus.align_pair(ref, live, "livenote_v2_diff", None, np.float64, "fused", device="cpu")
+
+
 def test_cli_matches_jax(two_piece_corpus, tmp_path, capsys):
     ref, live = _pair(two_piece_corpus, "steady")
     rng = np.random.default_rng(3)
@@ -172,6 +263,23 @@ def test_cli_matches_jax(two_piece_corpus, tmp_path, capsys):
             assert capsys.readouterr().out == got
     with pytest.raises(NotImplementedError, match="item 7"):
         tmain(["--ref", ref, "--live", live, "--engine", "wtw", "--device", "cpu"])
+    # an online engine's fused sweep: the runner's own report
+    assert tmain(["--corpus", two_piece_corpus, "--engine", "otw", "--mode", "fused", "--device", "cpu"]) == 0
+    got = capsys.readouterr().out
+    tcorpus.CorpusRunner(two_piece_corpus, "otw", mode="fused", device="cpu").evaluate()
+    assert got == capsys.readouterr().out and "mean error" in got
+
+
+def test_feature_memo_keys_on_kind(cases):
+    """Chroma and chroma-diff of one recording are two memo entries."""
+    ref, _ = _pair(cases, "noisy")
+    chroma = tcorpus._cached_chroma(ref, np.float32, "cpu")
+    diff = tcorpus._cached_chroma(ref, np.float32, "cpu", "chroma_diff")
+    assert diff.shape == (12, chroma.shape[1] - 1)
+    np.testing.assert_array_equal(diff.numpy(), tchroma.wav_to_chroma_diff(ref, device="cpu").numpy())
+    assert tcorpus._cached_chroma(ref, np.float32, "cpu") is chroma
+    assert tcorpus._cached_chroma(ref, np.float32, "cpu", "chroma_diff") is diff
+    assert sorted(k[2] for k in tcorpus._FEAT_CACHE) == ["chroma", "chroma_diff"]
 
 
 def test_chroma_memo_is_an_lru(cases, monkeypatch):

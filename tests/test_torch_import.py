@@ -62,6 +62,10 @@ ENTRY_POINTS = [
     ("features.chroma", "chroma_from_samples"),
     ("features.chroma", "wav_to_chroma"),
     ("features.chroma", "wav_to_chroma_col"),
+    ("features.chroma", "wav_to_chroma_diff"),
+    ("features.chroma", "chroma_diff_from_samples"),
+    ("ops.otw_set_live", "pallas_set_live"),
+    ("ops.otw_set_live", "pallas_batched_set_live"),
     ("models.dtw", "DTW"),
     ("models.dtw", "dtw_device"),
     ("models.dtw", "dtw_auto"),
