@@ -58,6 +58,27 @@ Phases, each raising on failure (the process then exits non-zero):
    combined frames (recordings of several pieces back to back) in one
    launch, equal to plain; the kernel's time at B = 1 and B = 18 (profiler, CUDA
    events, plain, bound) and one traced sweep.
+9. the long-reference (delta) mode of the K-insert kernel and the follower on
+   a concert-length reference —
+   (a) the delta mode against its plain version on the card, launch by
+   launch, over phase 3's grid (status, delta rows, window, live history and
+   scalars EQUAL; a whole-path kernel run alongside has the same state and
+   status after every launch and the same points), and so both modes at the
+   wide bands c ∈ {237, 238, 400} too (238 and 400 keep their window in
+   global memory), with kernels #2 and #3 (solo and a batch of 3) at the
+   same bands and the two kernels' times across that edge;
+   (b) the eight ``_00`` recordings of ``FULL_PIECES`` back to back as the
+   reference (~39 minutes, ~25,000 frames; beat CSVs joined) and their
+   ``_01`` recordings, in the same order, as the live performance, through
+   ``ScoreFollower(ref, engine, PARAMS, fused=True, device="cuda")`` in
+   2048-sample buffers for "otw" and "livenote_v2": the engine must choose
+   the long-reference layout by itself, its path must equal a
+   ``long_ref=False`` engine's on the same columns, point for point; prints
+   the real-time factor, the launches read from the counters, the pending
+   delta entries a path read drains (one device-to-host copy each) and their
+   bytes, and the device bytes per stream in each layout;
+   (c) the delta mode's time at k_block 8 on that reference (profiler, CUDA
+   events, plain, and the bound of this run's launches).
 
 The builds run in parallel (one ``nvcc`` per source).  Then one JSON line
 of per-kernel results, and last ``{"ok": true, "device": {...}}``.
@@ -89,6 +110,9 @@ KERNELS = {
     "otw_set_live": ("otw_set_live", f"{CSRC}/otw_set_live.cu", "real_time_audio_sync_tpu/ops/pallas_otw.py:387"),
     "otw_batched_set_live": ("otw_set_live", f"{CSRC}/otw_set_live.cu",
                              "real_time_audio_sync_tpu/ops/pallas_otw.py:505"),
+    # kernel #4 is the delta mode of kernel #1's CUDA kernel
+    "otw_insert_block_long": ("otw_insert", f"{CSRC}/otw_insert.cu",
+                              "real_time_audio_sync_tpu/ops/pallas_otw.py:959"),
 }
 # the card's published peaks (H100 SXM data sheet, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
@@ -100,6 +124,12 @@ SET_LIVE_SCENARIOS = ("runs_out", "stop", "capacity")
 # engine instead of its set_live kernel (pallas_otw.py:422); phase 8 runs a
 # pair above it through the port's set_live kernel
 LONG_PAIR_FRAMES = 12000
+# bands on both sides of the H100's shared-memory limit for the (c+1)² window
+# (c = 238 is the first that does not fit), and one far above it
+WIDE_BANDS = (237, 238, 400)
+# buffers of the concert follower traced by the profiler (a slice: a trace of
+# every hop holds ~10^6 events)
+TRACE_BUFFERS = 3000
 
 
 def log(msg: str) -> None:
@@ -140,7 +170,8 @@ def clone_state(state):
     import dataclasses
 
     return dataclasses.replace(state, **{f.name: getattr(state, f.name).clone()
-                                         for f in dataclasses.fields(state)})
+                                         for f in dataclasses.fields(state)
+                                         if getattr(state, f.name) is not None})
 
 
 def compare_states(a, b, what: str) -> float:
@@ -150,6 +181,8 @@ def compare_states(a, b, what: str) -> float:
 
     for name in ("status", "scalars", "path_x", "path_y", "live", "window"):
         x, y = getattr(a, name), getattr(b, name)
+        if x is None and y is None:  # delta mode: no whole-path buffers
+            continue
         if not torch.equal(x, y):
             diff = (x.double() - y.double()).abs()
             raise AssertionError(f"{what}: kernel and plain disagree on {name} "
@@ -834,6 +867,337 @@ def phase_set_live_main_path(device, root: str):
     return out
 
 
+def delta_row(cfg, k_block: int, device):
+    import torch
+
+    from real_time_audio_sync_tpu_torch.ops import otw_insert
+
+    return torch.empty(otw_insert.N_STATUS + 2 * otw_insert.delta_slots(cfg, k_block), dtype=torch.int32,
+                       device=device)
+
+
+def run_delta_stream(ref, live, cfg, k_block: int, device, what: str) -> float:
+    """One stream through the kernel in delta mode and its plain version,
+    launch by launch (status, delta row, window, live history and scalars
+    equal), beside the kernel in whole-path mode, whose state and status
+    must equal the delta-mode kernel's after every launch and whose path
+    must hold the rows' points — so both modes are held to the plain
+    version.  Returns the window's largest |diff| (0.0)."""
+    import numpy as np
+    import torch
+
+    from real_time_audio_sync_tpu_torch.ops import otw_insert
+
+    n = ref.shape[1]
+    cap = 2 * n
+    ref_t = torch.from_numpy(ref).to(device)
+    kern = otw_insert.new_state(ref_t, cfg, cap, whole_path=False)
+    plain = clone_state(kern)
+    whole = otw_insert.new_state(ref_t, cfg, cap)
+    rows = torch.from_numpy(np.ascontiguousarray(live.T)).to(device)
+    points, worst = [], 0.0
+    for s in range(0, rows.shape[0], k_block):
+        block = rows[s : s + k_block]
+        lens = (cap, n, block.shape[0])
+        plen0 = int(plain.scalars[otw_insert.S_PLEN])
+        row_k, row_p = delta_row(cfg, k_block, device), delta_row(cfg, k_block, device)
+        otw_insert.insert_block(kern, block, lens, cfg, k_block, delta=row_k)
+        otw_insert.insert_block_reference(plain, block, lens, cfg, k_block, delta=row_p)
+        otw_insert.insert_block(whole, block, lens, cfg, k_block)
+        torch.cuda.synchronize()
+        if not torch.equal(row_k, row_p):
+            raise AssertionError(f"{what} @col {s}: kernel and plain disagree on the delta row "
+                                 f"(max |diff| {max_abs_diff(row_k, row_p)})")
+        worst = max(worst, compare_states(kern, plain, f"{what} @col {s}"))
+        if not torch.equal(row_k[: otw_insert.N_STATUS], whole.status):
+            raise AssertionError(f"{what} @col {s}: delta and whole-path status differ")
+        for name in ("window", "live", "scalars"):
+            if not torch.equal(getattr(whole, name), getattr(kern, name)):
+                raise AssertionError(f"{what} @col {s}: the two modes' {name} differ")
+        got = int(row_k[1]) - plen0
+        _, dx, dy = otw_insert.delta_views(row_k, cfg, k_block)
+        points.append(torch.stack([dx[:got], dy[:got]], dim=1))
+    plen = int(whole.scalars[otw_insert.S_PLEN])
+    want = torch.stack([whole.path_x[:plen], whole.path_y[:plen]], dim=1)
+    if not torch.equal(torch.cat(points), want):
+        raise AssertionError(f"{what}: the delta rows' points differ from the whole-path kernel's path")
+    return worst
+
+
+def phase_delta_vs_plain(device) -> float:
+    """Phase 9 (a): the delta mode over phase 3's grid, and both modes and
+    the set_live kernel at the wide bands."""
+    import numpy as np
+    import torch
+
+    from real_time_audio_sync_tpu_torch.models.online_core import ENGINE_OVERRIDES, OnlineConfig
+    from real_time_audio_sync_tpu_torch.ops import otw_insert, otw_set_live
+
+    t0 = time.perf_counter()
+    worst, streams = 0.0, 0
+    for vi, variant in enumerate(VARIANTS):
+        for c in BANDS:
+            for k_block in K_BLOCKS:
+                for scenario in (("stop", "capacity") if k_block == 32 else ("stop",)):
+                    rng = np.random.default_rng(9000 + 1000 * vi + 10 * c + k_block)
+                    mrc = 5 if scenario == "capacity" else 3
+                    cfg = OnlineConfig(c=c, max_run_count=mrc, **ENGINE_OVERRIDES[variant])
+                    ref, live = stream(rng, variant, 3 * c + 30 if scenario == "capacity" else c + 30, scenario)
+                    worst = max(worst, run_delta_stream(ref, live, cfg, k_block, device,
+                                                        f"phase 9 [{variant} c={c} k={k_block} {scenario}]"))
+                    streams += 1
+    log(f"phase 9: delta-mode kernel == plain on the card over {len(VARIANTS)} variants x bands {BANDS} x "
+        f"k_block {K_BLOCKS} (+ capacity freeze at k_block 32): {streams} streams, window max |diff| {worst}, "
+        f"every delta row equal, the whole-path kernel's path == the rows' points, {time.perf_counter() - t0:.1f} s")
+
+    t1 = time.perf_counter()
+    for vi, variant in enumerate(VARIANTS):
+        for c in WIDE_BANDS:
+            rng = np.random.default_rng(9500 + 10 * vi + c)
+            cfg = OnlineConfig(c=c, max_run_count=3, **ENGINE_OVERRIDES[variant])
+            ref, live = stream(rng, variant, c + 30, "stop")
+            worst = max(worst, run_delta_stream(ref, live, cfg, 8, device, f"phase 9 [{variant} c={c} wide]"))
+    limit = otw_insert._SHARED_LIMIT[torch.device(device).index or 0]  # read by the first wide launch
+    routes = {c: otw_insert.window_route(c, limit) for c in WIDE_BANDS}
+    log(f"phase 9: wide bands {WIDE_BANDS} (windows: {routes}, shared-memory opt-in limit {limit} B): "
+        f"K-insert kernel == plain in both modes for {len(VARIANTS)} variants, k_block 8, "
+        f"{time.perf_counter() - t1:.1f} s")
+
+    t1 = time.perf_counter()
+    cases = 0
+    for vi, variant in enumerate(("otw", "livenote_v2_diff")):
+        for c in WIDE_BANDS:
+            rng = np.random.default_rng(9700 + 10 * vi + c)
+            ref, live = set_live_pair(rng, variant, c, "stop")
+            compare_set_live([torch.from_numpy(ref).to(device)], [torch.from_numpy(live).to(device)],
+                             set_live_cfg(variant, c), f"phase 9 [set_live {variant} c={c}]")
+            cases += 1
+    rng = np.random.default_rng(9800)
+    pairs = [set_live_pair(rng, "otw", WIDE_BANDS[-1], SET_LIVE_SCENARIOS[i]) for i in range(3)]
+    compare_set_live([torch.from_numpy(r).to(device) for r, _ in pairs], [torch.from_numpy(l).to(device) for _, l in pairs],
+                     set_live_cfg("otw", WIDE_BANDS[-1]), f"phase 9 [batched set_live c={WIDE_BANDS[-1]} B=3]")
+    log(f"phase 9: set_live kernel == plain at the wide bands: {cases} solo pairs (otw, livenote_v2_diff x "
+        f"{WIDE_BANDS}) and a ragged batch of 3 at c={WIDE_BANDS[-1]}, {time.perf_counter() - t1:.1f} s")
+
+    # what the global-memory window costs: kernels #1 and #2 across the edge
+    for c in (BANDS[-1],) + WIDE_BANDS:
+        rng = np.random.default_rng(9900 + c)
+        cfg = OnlineConfig(c=c, max_run_count=3, **ENGINE_OVERRIDES["otw"])
+        ref, live = stream(rng, "otw", c + 30, "stop")
+        n = ref.shape[1]
+        rows = torch.from_numpy(np.ascontiguousarray(live.T)).to(device)
+        k, reps = 8, 16
+        state = otw_insert.new_state(torch.from_numpy(ref).to(device), cfg, 2 * n)
+        ins_ms = time_launches(lambda st, r, kk: otw_insert.insert_block(st, r, (2 * n, n, kk), cfg, kk),
+                               state, rows, k, reps)
+        ref_sl, live_sl = set_live_pair(rng, "otw", c, "stop")
+        packed = otw_set_live.pack([torch.from_numpy(ref_sl).to(device)], [torch.from_numpy(live_sl).to(device)], c)
+        sl_ms = time_calls(lambda: otw_set_live.batched_set_live(*packed, cfg), 5)
+        plen, t, j = otw_set_live.batched_set_live(*packed, cfg)[2][0, :3].tolist()
+        log(f"phase 9 [c={c}, window in {otw_insert.window_route(c, limit)} memory]: K-insert kernel "
+            f"{ins_ms:.4f} ms/launch at k_block {k} (CUDA events, {reps} launches, n={n}); set_live kernel "
+            f"{sl_ms:.4f} ms/pair (CUDA events, 5 calls; {t} x {j} frames, {t + j - 1} band updates, "
+            f"{plen} points, {sl_ms * 1e3 / max(t + j - 1, 1):.3f} us/update)")
+    return worst
+
+
+def render_concert(root: str):
+    """The eight ``_00`` recordings back to back (reference) and their
+    ``_01`` recordings in the same order (live), with their beat CSVs
+    joined (times offset by the audio before them, beats renumbered), in
+    ``root/concert``.  Needs the full corpus rendered in ``root``."""
+    import csv
+
+    import numpy as np
+
+    from real_time_audio_sync_tpu_torch.config import FS
+    from real_time_audio_sync_tpu_torch.eval import synthetic
+    from real_time_audio_sync_tpu_torch.utils.wavio import load_wav, write_wav
+
+    d = os.path.join(root, "concert")
+    os.makedirs(d, exist_ok=True)
+    out = []
+    for take in ("00", "01"):
+        pcm, rows, t_off, b_off = [], [], 0.0, 0
+        for piece in synthetic.FULL_PIECES:
+            base = os.path.join(root, piece, f"{piece}_{take}")
+            x, fs = load_wav(base + ".wav")
+            if fs != FS:
+                raise AssertionError(f"{base}.wav: {fs} Hz")
+            with open(base + ".csv", newline="") as f:
+                beats = [(float(r[0]), int(r[1])) for r in csv.reader(f) if r]
+            rows += [(t + t_off, b + b_off) for t, b in beats]
+            pcm.append(x)
+            t_off += len(x) / fs
+            b_off += beats[-1][1]
+        path = os.path.join(d, f"concert_{take}")
+        write_wav(path + ".wav", np.concatenate(pcm))
+        with open(path + ".csv", "w", newline="") as f:
+            csv.writer(f).writerows([(f"{t:.6f}", b) for t, b in rows])
+        out.append(path + ".wav")
+    return out
+
+
+def stream_device_bytes(eng) -> dict:
+    """Device bytes one stream's state holds, by layout: the window, the
+    reference and live rows and the scalars, plus the whole-path buffers of
+    the standard layout (the delta layout's pending rows are counted apart)."""
+    st = eng._state
+    common = sum(x.numel() * x.element_size() for x in (st.window, st.ref, st.live, st.scalars, st.status))
+    path = 2 * (eng.cap + eng.n + 16) * 4
+    return {"delta": common, "standard": common + path}
+
+
+def insert_bound(c: int, f: int, euclidean: bool, k: int, d_pad: int, launches: int, dt: int, dj: int,
+                 points: int):
+    """(bound ms, "bytes" or "operations", bytes, ops) of one delta-mode
+    launch, averaged over ``launches`` launches that advanced t by ``dt``, j
+    by ``dj`` and committed ``points`` points: bytes are the window read and
+    written, the k columns read, their live rows written, the c+1+k live and
+    c+1+dj/launches reference rows the band reads, the scalars read and
+    written and the delta row written; operations are (c+1) cells of cost,
+    recurrence and scan per band update (dt + dj in all) and two (c+1)-wide
+    argmins per point."""
+    import math
+
+    stages = math.ceil(math.log2(c + 1))
+    per_cell = (3 * f + 1 if euclidean else 2 * f + 1) + 5 + 3 * stages
+    bytes_ = (2 * (c + 1) ** 2 * 4 + 2 * k * f * 4 + (c + 1 + k) * f * 4 + (c + 1 + dj / launches) * f * 4
+              + 2 * 16 * 4 + (8 + 2 * d_pad) * 4)
+    ops = ((dt + dj) * (c + 1) * per_cell + points * 2 * (c + 1)) / launches
+    t_bytes, t_ops = bytes_ / HBM_BYTES_PER_S * 1e3, ops / FP32_FLOPS * 1e3
+    return (t_bytes, "bytes", bytes_, ops) if t_bytes >= t_ops else (t_ops, "operations", bytes_, ops)
+
+
+def phase_concert(device, root: str):
+    """Phase 9 (b) and (c); returns (launches read, device ms, event ms,
+    plain ms, bound ms, bound by) for kernel #4's row."""
+    import numpy as np
+    import torch
+
+    from real_time_audio_sync_tpu_torch.eval import synthetic
+    from real_time_audio_sync_tpu_torch.eval.scorer import PathScorer
+    from real_time_audio_sync_tpu_torch.models import fused_streaming
+    from real_time_audio_sync_tpu_torch.models.fused_streaming import FusedStreamingEngine
+    from real_time_audio_sync_tpu_torch.models.online_core import ENGINE_OVERRIDES
+    from real_time_audio_sync_tpu_torch.ops import otw_insert
+    from real_time_audio_sync_tpu_torch.streaming.runtime import ScoreFollower
+    from real_time_audio_sync_tpu_torch.utils.wavio import load_wav
+
+    t0 = time.perf_counter()
+    ref_wav, live_wav = render_concert(root)
+    pcm, fs = load_wav(live_wav)
+    buffers = [pcm[s : s + 2048] for s in range(0, len(pcm), 2048)]
+    audio_s = len(pcm) / fs
+    cols = hop_columns(buffers, device)
+    scorer = PathScorer.for_pair(ref_wav, live_wav)
+    log(f"phase 9 [concert]: reference and live joined from the {len(synthetic.FULL_PIECES)} pieces "
+        f"({audio_s / 60:.1f} min of live audio, {cols.shape[1]} hops), {time.perf_counter() - t0:.1f} s")
+    launches_read = 0
+    for engine in ("otw", "livenote_v2"):
+        follower = ScoreFollower(ref_wav, engine, PARAMS, fused=True, device=device)
+        eng = follower.engine
+        if not eng.long_ref or eng.n < fused_streaming._LONG_REF_THRESHOLD:
+            raise AssertionError(f"{engine}: {eng.n} reference frames, long_ref={eng.long_ref}")
+        torch.cuda.synchronize()
+        otw_insert.launches = otw_insert.delta_launches = 0
+        t1 = time.perf_counter()
+        follow(follower, buffers)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        delta, whole = otw_insert.delta_launches, otw_insert.launches
+        launches_read += delta
+        if delta == 0 or whole != 0 or delta != len(eng.dispatched_block_sizes):
+            raise AssertionError(f"{engine}: {delta} delta and {whole} whole-path launches for "
+                                 f"{len(eng.dispatched_block_sizes)} dispatches")
+        entries = len(eng._deltas)
+        pending = sum(x.numel() * x.element_size() for e in eng._deltas
+                      for x in (e if isinstance(e, tuple) else (e,)))
+        t1 = time.perf_counter()
+        path = np.asarray(follower.path)
+        drain_s = time.perf_counter() - t1
+        if path.ndim != 2 or path.shape[1] != 2 or len(path) == 0 or eng._deltas:
+            raise AssertionError(f"{engine}: bad path {path.shape} or undrained rows")
+        std = FusedStreamingEngine(eng._state.ref[PARAMS["c"]:].T, PARAMS, ENGINE_OVERRIDES[engine], k_block=32,
+                                   device=device, long_ref=False)
+        std.insert_block_nowait(cols)
+        std.flush()
+        if not np.array_equal(std.path_array, path):
+            raise AssertionError(f"{engine}: the long-reference path differs from the standard layout's")
+        score = scorer.score(follower.path)
+        size = stream_device_bytes(eng)
+        log(f"phase 9 [concert {engine}]: {cols.shape[1]} hops vs {eng.n} ref frames, long_ref chosen by the engine; "
+            f"{delta} delta launches read from the counter (mean {np.mean(eng.dispatched_block_sizes):.2f} "
+            f"frames/launch), 0 whole-path; path {len(path)} points == standard layout (k_block 32), last point "
+            f"{tuple(int(v) for v in path[-1])}; stopped={follower.stopped}")
+        log(f"phase 9 [concert {engine}]: wall {wall:.3f} s, real-time factor {audio_s / wall:.1f}; the path read "
+            f"drained {entries} pending entries (one device-to-host copy each, {pending} B in all, "
+            f"{pending / max(entries, 1):.0f} B per copy) in {drain_s:.3f} s; device bytes per stream: "
+            f"{size['delta']} (delta layout) vs {size['standard']} (standard layout)")
+        log(f"phase 9 [concert {engine}]: PathScorer count={score.count} pct_off_beats={score.pct_off_beats} "
+            f"pct_off_secs={score.pct_off_secs}")
+        if engine == "otw":
+            # the same follower in the standard layout (threshold raised for
+            # this one construction): what the delta layout costs per hop
+            saved = fused_streaming._LONG_REF_THRESHOLD
+            fused_streaming._LONG_REF_THRESHOLD = eng.n + 1
+            try:
+                standard = ScoreFollower(ref_wav, engine, PARAMS, fused=True, device=device)
+            finally:
+                fused_streaming._LONG_REF_THRESHOLD = saved
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            follow(standard, buffers)
+            torch.cuda.synchronize()
+            std_wall = time.perf_counter() - t1
+            if standard.engine.long_ref or not np.array_equal(np.asarray(standard.path), path):
+                raise AssertionError(f"{engine}: the standard-layout follower's path differs from the long one's")
+            log(f"phase 9 [concert {engine}]: the same follower in the standard layout: wall {std_wall:.3f} s, "
+                f"real-time factor {audio_s / std_wall:.1f}, path == the long layout's")
+            # where the time goes in the long layout: a traced slice of the concert
+            fresh = ScoreFollower(ref_wav, engine, PARAMS, fused=True, device=device)
+            trace_run(lambda: follow(fresh, buffers[:TRACE_BUFFERS]), f"phase 9 [trace, first {TRACE_BUFFERS} buffers]")
+
+    # (c) the delta mode's time at k_block 8 on the concert reference
+    k = 8
+    reps = min(64, cols.shape[1] // k - 2)
+    cfg = eng.cfg
+    rows = cols.T.contiguous()
+    base = otw_insert.new_state(eng._state.ref[PARAMS["c"]:].T.contiguous(), cfg, eng.cap, whole_path=False)
+    out = torch.empty((reps + 2, otw_insert.N_STATUS + 2 * otw_insert.delta_slots(cfg, k)), dtype=torch.int32,
+                      device=device)
+    lens = (eng.cap, eng.n, k)
+
+    def timed(fn, state):
+        for r in range(2):
+            fn(state, rows[r * k : (r + 1) * k], lens, cfg, k, delta=out[r])
+        sc0 = state.scalars.tolist()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for r in range(2, 2 + reps):
+            fn(state, rows[r * k : (r + 1) * k], lens, cfg, k, delta=out[r])
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / reps, sc0, state.scalars.tolist()
+
+    event_ms, sc0, sc1 = timed(otw_insert.insert_block, clone_state(base))
+    plain_ms, _, _ = timed(otw_insert.insert_block_reference, clone_state(base))
+    st = clone_state(base)
+    dev_ms, traced = kernel_device_ms(
+        lambda r: otw_insert.insert_block(st, rows[r * k : (r + 1) * k], lens, cfg, k, delta=out[r]), reps,
+        "otw_insert_kernel")
+    dt, dj, points = (sc1[s] - sc0[s] for s in (otw_insert.S_T, otw_insert.S_J, otw_insert.S_PLEN))
+    bound_ms, bound_by, bytes_, ops = insert_bound(cfg.c, 12, cfg.euclidean, k, otw_insert.delta_slots(cfg, k), reps,
+                                                   dt, dj, points)
+    log(f"phase 9 [otw_insert_block_long] k_block={k}, c={cfg.c}, N={eng.n} ({engine}): "
+        f"device time {'not measured' if dev_ms is None else f'{dev_ms:.4f} ms'} (profiler, {traced} of {reps} "
+        f"launches traced), {event_ms:.4f} ms back to back (CUDA events), plain {plain_ms:.4f} ms; bound "
+        f"{bound_ms:.7f} ms by {bound_by} ({bytes_:.0f} B, {ops:.0f} ops a launch; {reps} launches: t +{dt}, "
+        f"j +{dj}, {points} points)")
+    log(f"phase 9: {time.perf_counter() - t0:.1f} s for (b) and (c)")
+    return launches_read, dev_ms, event_ms, plain_ms, bound_ms, bound_by
+
+
 def otw_insert_bound_ms(c: int = PARAMS["c"], k: int = 8, f: int = 12) -> float:
     """Bytes of one k_block-k launch at band c over the memory rate: the
     window in and out, the k columns in and live rows out, the k + c + 1
@@ -881,6 +1245,10 @@ def main() -> int:
         launches, timings = phase_main_path(device, ref_wav, live_wav)
         wf = phase_dtw_main_path(device, root)
         sl = phase_set_live_main_path(device, root)
+        t9 = time.perf_counter()
+        worst_delta = phase_delta_vs_plain(device)
+        concert = phase_concert(device, root)
+        log(f"phase 9: {time.perf_counter() - t9:.1f} s in all")
 
     # "ms" is each kernel's device time per launch (profiler; the CUDA-event
     # time when the trace holds none); otw_insert_block's at k_block 8,
@@ -889,6 +1257,8 @@ def main() -> int:
     rows = {"otw_insert_block": (launches, worst, dev_ms, kern_ms, plain_ms, otw_insert_bound_ms(), "bytes")}
     rows.update(wf)
     rows.update(sl)
+    n_long, d_ms, e_ms, p_ms, b_ms, b_by = concert
+    rows["otw_insert_block_long"] = (n_long, worst_delta, d_ms, e_ms, p_ms, b_ms, b_by)
     kernels = []
     for name, (n_launch, err, d_ms, e_ms, p_ms, b_ms, b_by) in rows.items():
         _, source, replaces = KERNELS[name]

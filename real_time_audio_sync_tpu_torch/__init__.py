@@ -22,5 +22,10 @@ live, and nothing falls back from the card to the CPU.
 """
 
 from real_time_audio_sync_tpu_torch import numerics  # noqa: F401  (TF32 off, process-wide)
+from real_time_audio_sync_tpu_torch.features.chroma import (  # noqa: F401
+    wav_to_chroma,
+    wav_to_chroma_col,
+    wav_to_chroma_diff,
+)
 
 __version__ = "0.1.0"

@@ -8,7 +8,9 @@
 // _minplus_doubling (:87) and _first_min (:111).
 //
 // Layout: a (c+1)^2 band-relative window W[a, b] = acc[t-c+a, j-c+b] in
-// shared memory, addressed through ring offsets (advancing t or j moves an
+// shared memory (or, for bands too wide for it, in a global-memory
+// workspace of one window per block; see window_bytes), addressed through
+// ring offsets (advancing t or j moves an
 // offset instead of rolling the window).  Feature rows sit in device memory
 // with c leading zero rows: ref row c+j is reference frame j, live row c+t
 // is live frame t.  Every function is called by all threads of the block;
@@ -50,6 +52,37 @@ __device__ __forceinline__ void take_min(float& v, int& i, float v2, int i2) {
     v = v2;
     i = i2;
   }
+}
+
+// Dynamic shared memory of one block of a band kernel with nt threads:
+// the window (unless it lives in a global workspace) and the scan and
+// argmin scratch.  ops/otw_insert.py:shared_bytes mirrors this to choose
+// the window's route.
+inline size_t window_bytes(int c) { return sizeof(float) * (size_t)(c + 1) * (c + 1); }
+inline size_t shared_bytes(int c, int nt, bool window_in_shared) {
+  return (window_in_shared ? window_bytes(c) : 0) + sizeof(float) * (4 * (size_t)nt + 4 * MAX_WARPS);
+}
+
+// Launch a band kernel of `blocks` blocks of nt threads with `smem` bytes of
+// dynamic shared memory, opting in above the default 48 KB; returns the
+// CUDA error code (0 on success).  The kernels take the window's memory
+// space as a template parameter (kSharedWindow), not as a runtime choice of
+// pointer: a pointer that may point to either space makes every window
+// access a generic one, and the shared route pays for it.
+template <typename Params>
+inline int launch_band(void (*kernel)(Params), int blocks, int nt, size_t smem, cudaStream_t stream,
+                       const Params& p) {
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  if (blocks > 0) {
+    void* args[] = {const_cast<Params*>(&p)};
+    cudaError_t e = cudaLaunchKernel(reinterpret_cast<const void*>(kernel), dim3(blocks), dim3(nt), args, smem,
+                                     stream);
+    if (e != cudaSuccess) return (int)e;
+  }
+  return (int)cudaGetLastError();
 }
 
 struct Ring {
@@ -154,10 +187,14 @@ struct Walk {
 // window column c over sublanes [a0, c]; then append it to the path (thread
 // 0 stores; the monotone guard of LiveNoteV2) and return the next direction
 // (startup, forced or free), updating the run count and previous direction.
-// red_v/red_i hold 2 * MAX_WARPS slots each.  Ends after a barrier.
+// The point committed at path index plen goes to slot plen - path_base of
+// path_x/path_y (p_len slots): path_base 0 for a whole-path buffer, the
+// launch's starting plen for a per-launch delta.  A point outside the slots
+// is counted but not stored.  red_v/red_i hold 2 * MAX_WARPS slots each.
+// Ends after a barrier.
 __device__ inline int set_direction(const float* W, const Ring& ring, int t, int j, int c, Walk& w,
-                                    int* path_x, int* path_y, int p_len, bool monotone,
-                                    int max_run_count, float* red_v, int* red_i) {
+                                    int* path_x, int* path_y, int p_len, int path_base,
+                                    bool monotone, int max_run_count, float* red_v, int* red_i) {
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5, nwarps = blockDim.x >> 5;
   const float inf = __int_as_float(0x7f800000);
@@ -187,9 +224,10 @@ __device__ inline int set_direction(const float* W, const Ring& ring, int t, int
   const int x = use_row ? t : t - c + ak;
   const int y = use_row ? j - c + bj : j;
   if (!monotone || w.plen == 0 || (x > w.lastx && y >= w.lasty)) {
-    if (tid == 0 && w.plen < p_len) {
-      path_x[w.plen] = x;
-      path_y[w.plen] = y;
+    const int slot = w.plen - path_base;
+    if (tid == 0 && slot >= 0 && slot < p_len) {
+      path_x[slot] = x;
+      path_y[slot] = y;
     }
     ++w.plen;
     w.lastx = x;
@@ -209,3 +247,12 @@ __device__ inline int set_direction(const float* W, const Ring& ring, int t, int
 }
 
 }  // namespace otw_band
+
+// The most dynamic shared memory one block may opt in to on `device`
+// (cudaDevAttrMaxSharedMemoryPerBlockOptin), or -1 on error: the wrappers
+// read it to choose where the (c+1)^2 window lives.
+extern "C" int otw_band_shared_optin(int device) {
+  int v = 0;
+  if (cudaDeviceGetAttribute(&v, cudaDevAttrMaxSharedMemoryPerBlockOptin, device) != cudaSuccess) return -1;
+  return v;
+}

@@ -24,7 +24,9 @@
 // ring offsets and the scalar state machine in registers; pairs are
 // independent blocks, each running its own t_i + n_i steps and leaving on
 // its own `done` (a ragged batch needs no grid-wide barrier).  A shared
-// reference is one copy in device memory that every block reads.
+// reference is one copy in device memory that every block reads.  A band
+// too wide for shared memory keeps each block's window in its slice of a
+// global-memory workspace (w_work), as the K-insert kernel does.
 
 #include "otw_band.cuh"
 
@@ -42,11 +44,13 @@ struct Params {
   int* path_x;         // (B, p_len)
   int* path_y;
   int* out;            // (B, N_OUT)
+  float* w_work;       // (B, L, L) global workspace (kSharedWindow false)
   int c, f, p_len, ref_rows, live_rows, shared_ref;
   float sentinel;
   int max_run_count, run_count_init, monotone, euclidean;
 };
 
+template <bool kSharedWindow>
 __global__ void otw_set_live_kernel(Params p) {
   extern __shared__ float smem[];
   const int b = blockIdx.x;
@@ -55,8 +59,8 @@ __global__ void otw_set_live_kernel(Params p) {
   const bool eu = p.euclidean != 0;
   const float sentinel = p.sentinel;
 
-  float* W = smem;                       // L * L
-  float* rbuf = W + L * L;               // 2 * nt (ping-pong)
+  float* W = kSharedWindow ? smem : p.w_work + (size_t)b * L * L;  // L * L
+  float* rbuf = kSharedWindow ? smem + L * L : smem;              // 2 * nt (ping-pong)
   float* cbuf = rbuf + 2 * nt;           // 2 * nt
   float* red_v = cbuf + 2 * nt;          // 2 * MAX_WARPS
   int* red_i = reinterpret_cast<int*>(red_v + 2 * MAX_WARPS);  // 2 * MAX_WARPS
@@ -80,7 +84,7 @@ __global__ void otw_set_live_kernel(Params p) {
   bool done = false;
   const int n_steps = live_len + ref_len;  // every step advances t or j
   for (int s = 0; s < n_steps && !done; ++s) {
-    const int d = set_direction(W, ring, t, j, c, w, path_x, path_y, p.p_len, p.monotone != 0,
+    const int d = set_direction(W, ring, t, j, c, w, path_x, path_y, p.p_len, 0, p.monotone != 0,
                                 p.max_run_count, red_v, red_i);
     if (d != COL) {
       ++t;
@@ -113,23 +117,17 @@ __global__ void otw_set_live_kernel(Params p) {
 }  // namespace
 
 extern "C" int otw_set_live(void* ref, void* live, void* lens, void* path_x, void* path_y, void* out,
-                            int batch, int c, int f, int p_len, int ref_rows, int live_rows,
-                            int shared_ref, float sentinel, int max_run_count, int run_count_init,
-                            int monotone, int euclidean, void* stream) {
+                            void* w_work, int batch, int c, int f, int p_len, int ref_rows,
+                            int live_rows, int shared_ref, float sentinel, int max_run_count,
+                            int run_count_init, int monotone, int euclidean, void* stream) {
   Params p{static_cast<const float*>(ref), static_cast<const float*>(live),
            static_cast<const int*>(lens), static_cast<int*>(path_x), static_cast<int*>(path_y),
-           static_cast<int*>(out), c, f, p_len, ref_rows, live_rows, shared_ref, sentinel,
-           max_run_count, run_count_init, monotone, euclidean};
-  const int L = c + 1;
-  const int nt = ((L + 31) / 32) * 32;
-  const size_t smem = sizeof(float) * ((size_t)L * L + 4 * nt + 4 * MAX_WARPS);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(otw_set_live_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  if (batch > 0) otw_set_live_kernel<<<batch, nt, smem, static_cast<cudaStream_t>(stream)>>>(p);
-  return (int)cudaGetLastError();
+           static_cast<int*>(out), static_cast<float*>(w_work), c, f, p_len, ref_rows, live_rows,
+           shared_ref, sentinel, max_run_count, run_count_init, monotone, euclidean};
+  const int nt = ((c + 1 + 31) / 32) * 32;
+  const bool in_shared = w_work == nullptr;
+  return launch_band(in_shared ? otw_set_live_kernel<true> : otw_set_live_kernel<false>, batch, nt,
+                     shared_bytes(c, nt, in_shared), static_cast<cudaStream_t>(stream), p);
 }
 
 extern "C" const char* otw_set_live_error_string(int code) {

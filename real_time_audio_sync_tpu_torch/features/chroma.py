@@ -24,6 +24,15 @@ from real_time_audio_sync_tpu_torch.utils.wavio import load_wav
 _CONST_CACHE: dict = {}
 
 
+def torch_dtype(dtype) -> torch.dtype:
+    """A torch dtype from any spelling the JAX package's entry points take:
+    a torch dtype, a numpy dtype or scalar type (``np.float32``), or a
+    name (``"float32"``)."""
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    return torch.from_numpy(np.empty(0, np.dtype(dtype))).dtype
+
+
 def hann_window(n: int) -> np.ndarray:
     """Symmetric Hann window, ``np.hanning`` parity (chroma.py:39,60)."""
     if n == 1:
@@ -101,16 +110,19 @@ def chroma_pipeline(wav: torch.Tensor, n_fft: int = FFT_LEN, hop: int = HOP_SIZE
     return chroma_frames(frame_span(x, t, n_fft, hop), n_fft, fs, normalize)
 
 
-def chroma_from_samples(wav, dtype=torch.float32, normalize: bool = True, *, device="cuda") -> torch.Tensor:
+def chroma_from_samples(wav, dtype=torch.float32, normalize: bool = True, bucket: bool = True, *,
+                        device="cuda") -> torch.Tensor:
     """22.05 kHz mono samples (numpy or tensor) → (12, T) chroma on
-    ``device``."""
+    ``device``.  ``bucket`` is the JAX package's power-of-two length
+    bucketing, which spares it a compile per length; the port compiles
+    nothing per shape, so it is accepted and ignored."""
     wav_t = torch.as_tensor(wav)
     if wav_t.ndim != 1:
         raise TypeError(
             f"chroma_from_samples expects 1-D mono samples, got shape "
             f"{tuple(wav_t.shape)}; average stereo to mono first (load_wav does), "
             f"and note a (12, T) chroma array is features, not samples")
-    return chroma_pipeline(wav_t.to(device=device, dtype=dtype), normalize=normalize)
+    return chroma_pipeline(wav_t.to(device=device, dtype=torch_dtype(dtype)), normalize=normalize)
 
 
 def wav_to_chroma(path_to_wav: str, dtype=torch.float32, *, device="cuda") -> torch.Tensor:
@@ -144,5 +156,5 @@ def wav_to_chroma_col(wav_buf, dtype=torch.float32, *, device="cuda") -> torch.T
     buf = torch.as_tensor(wav_buf)
     if buf.shape[-1] != FFT_LEN:
         raise ValueError(f"wav_to_chroma_col takes {FFT_LEN} samples, got {buf.shape[-1]}")
-    frames = buf.to(device=device, dtype=dtype).reshape(1, FFT_LEN)
+    frames = buf.to(device=device, dtype=torch_dtype(dtype)).reshape(1, FFT_LEN)
     return chroma_frames(frames)[:, 0]

@@ -1,10 +1,20 @@
 """K streaming OTW inserts per launch on a band-relative window: the CUDA
 kernel's wrapper, its plain PyTorch version, and the engine state layout.
 
-Replaces the TPU kernel ``real_time_audio_sync_tpu/ops/pallas_otw.py``:
-``_pallas_insert_block`` (:803) with its body ``_insert_block_body`` (:644)
-and band primitives ``_build_ops`` (:125), ``_minplus_doubling`` (:87) and
-``_first_min`` (:111).  The CUDA source is ``csrc/otw_insert.cu``.
+Replaces two TPU kernels of ``real_time_audio_sync_tpu/ops/pallas_otw.py``
+as the two modes of one CUDA kernel (``csrc/otw_insert.cu``):
+
+- whole path: ``_pallas_insert_block`` (:803) with its body
+  ``_insert_block_body`` (:644) and band primitives ``_build_ops`` (:125),
+  ``_minplus_doubling`` (:87) and ``_first_min`` (:111) — committed points
+  go to the state's whole-path buffers;
+- delta: ``_pallas_insert_block_long`` (:959) — each launch writes its
+  status and the points it committed into one fresh int32 row
+  ``[status (8) | dx (d_pad) | dy (d_pad)]`` (:func:`delta_slots`), the
+  point at path index ``plen`` in slot ``plen − plen₀``, and the caller
+  keeps the path on the host.  The TPU kernel's sliding live window and
+  reference DMA window exist to fit VMEM; here the reference and the whole
+  live history stay in device memory in both modes.
 
 What bounds it on an H100: latency, not bytes or FLOPs.  One stream is one
 thread block running a serial chain of about ``K·loop_iters`` band steps,
@@ -14,7 +24,10 @@ in shared memory for the launch (a ring offset replaces the TPU's physical
 rolls, so a band step touches O(c) cells), keeps the scalar state machine
 in registers (every thread computes it identically from the same reduced
 values), and touches device memory only for the 12-float feature rows, the
-path points and the launch's prologue/epilogue.
+path points and the launch's prologue/epilogue.  A band whose window does
+not fit the card's shared memory per block (c ≥ 238 on an H100) keeps its
+window in a global-memory workspace instead (:func:`window_route`): the
+same kernel with another pointer, chosen by band width.
 
 State at a launch boundary (:class:`OTWState`, all on one device) is
 updated IN PLACE by each launch — this replaces the TPU kernel's
@@ -36,7 +49,7 @@ dot over 128 lanes in another order) costs differ by about an ulp.
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -49,9 +62,55 @@ from real_time_audio_sync_tpu_torch.models.online_core import BOTH, COL, PREV_NO
 N_SCALARS = 16
 N_STATUS = 8
 
-#: launches of the CUDA kernel in this process (the plain version does not
-#: count); a caller may reset it to 0 before the run it wants to inspect
+#: launches of the CUDA kernel in this process, whole-path mode and delta
+#: mode (the plain version does not count); a caller may reset them to 0
+#: before the run it wants to inspect
 launches = 0
+delta_launches = 0
+
+#: warps of the argmin scratch (otw_band.cuh MAX_WARPS)
+MAX_WARPS = 32
+
+
+def delta_slots(cfg: OnlineConfig, k_block: int) -> int:
+    """Point slots ``d_pad`` of one delta row: a launch commits at most
+    ``loop_iters`` points per insert (pallas_otw.py:874)."""
+    return k_block * cfg.loop_iters + 8
+
+
+def shared_bytes(c: int, window_in_shared: bool = True) -> int:
+    """Dynamic shared memory of one block of the band kernels at band ``c``
+    (``otw_band.cuh`` ``shared_bytes``): the (c+1)² window unless it lives
+    in a global workspace, plus the scan and argmin scratch."""
+    nt = -(-(c + 1) // 32) * 32
+    return 4 * (((c + 1) ** 2 if window_in_shared else 0) + 4 * nt + 4 * MAX_WARPS)
+
+
+def window_route(c: int, limit: int) -> str:
+    """Where a band-``c`` kernel keeps its window on a card allowing
+    ``limit`` bytes of shared memory per block: ``"shared"`` when it fits,
+    else ``"global"`` (a workspace of one window per block)."""
+    return "shared" if shared_bytes(c) <= limit else "global"
+
+
+_SHARED_LIMIT: dict = {}
+
+
+def window_workspace(lib, c: int, blocks: int, device: torch.device):
+    """The global-memory window workspace (blocks, c+1, c+1) f32 for a launch
+    of ``blocks`` blocks at band ``c``, or None when the windows fit in
+    shared memory.  The limit is the device's
+    ``cudaDevAttrMaxSharedMemoryPerBlockOptin``, read once per device
+    through ``lib`` (either band library)."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    if index not in _SHARED_LIMIT:
+        limit = lib.otw_band_shared_optin(index)
+        if limit < 0:
+            raise RuntimeError(f"cannot read the shared-memory limit of cuda:{index}")
+        _SHARED_LIMIT[index] = limit
+    if window_route(c, _SHARED_LIMIT[index]) == "shared":
+        return None
+    return torch.empty((blocks, c + 1, c + 1), dtype=torch.float32, device=device)
 
 
 @dataclasses.dataclass
@@ -62,24 +121,27 @@ class OTWState:
     - ``ref`` (c+N, F) f32: reference features, row ``c+j`` ↔ ref frame j
       (c leading zero rows, read by band cells left of frame 0);
     - ``live`` (c+cap, F) f32: live feature history, row ``c+t`` ↔ frame t;
-    - ``path_x``/``path_y`` (cap+N+16,) int32: committed path points;
+    - ``path_x``/``path_y`` (cap+N+16,) int32: committed path points, or
+      None for a stream launched in delta mode (its path is the caller's);
     - ``scalars`` int32[16]: slots ``S_*``;
-    - ``status`` int32[8]: the last launch's
-      ``[stopped | overflow<<1, plen, lastx, lasty, 0, 0, 0, 0]``.
+    - ``status`` int32[8]: the last whole-path launch's
+      ``[stopped | overflow<<1, plen, lastx, lasty, 0, 0, 0, 0]`` (a delta
+      launch writes its status into its delta row).
     """
 
     window: torch.Tensor
     ref: torch.Tensor
     live: torch.Tensor
-    path_x: torch.Tensor
-    path_y: torch.Tensor
+    path_x: Optional[torch.Tensor]
+    path_y: Optional[torch.Tensor]
     scalars: torch.Tensor
     status: torch.Tensor
 
 
-def new_state(ref: torch.Tensor, cfg: OnlineConfig, cap: int) -> OTWState:
+def new_state(ref: torch.Tensor, cfg: OnlineConfig, cap: int, whole_path: bool = True) -> OTWState:
     """Fresh state for reference features ``ref`` (F, N) with live capacity
-    ``cap``, on ``ref``'s device (scalars as fused_streaming.py:129-135)."""
+    ``cap``, on ``ref``'s device (scalars as fused_streaming.py:129-135);
+    ``whole_path=False`` allocates no path buffers (delta mode)."""
     f, n = ref.shape
     c = cfg.c
     dev = ref.device
@@ -93,18 +155,20 @@ def new_state(ref: torch.Tensor, cfg: OnlineConfig, cap: int) -> OTWState:
     scalars[S_FIRST] = 1
     scalars[S_DIR] = BOTH
     p_len = cap + n + 16
+    path = (lambda: torch.zeros(p_len, dtype=torch.int32, device=dev)) if whole_path else (lambda: None)
     return OTWState(
         window=torch.full((c + 1, c + 1), cfg.sentinel, dtype=torch.float32, device=dev),
         ref=ref_rows,
         live=torch.zeros((c + cap, f), dtype=torch.float32, device=dev),
-        path_x=torch.zeros(p_len, dtype=torch.int32, device=dev),
-        path_y=torch.zeros(p_len, dtype=torch.int32, device=dev),
+        path_x=path(),
+        path_y=path(),
         scalars=scalars.to(dev),
         status=torch.zeros(N_STATUS, dtype=torch.int32, device=dev),
     )
 
 
-def _check(state: OTWState, cols: torch.Tensor, lens: Tuple[int, int, int], cfg: OnlineConfig, k_block: int) -> None:
+def _check(state: OTWState, cols: torch.Tensor, lens: Tuple[int, int, int], cfg: OnlineConfig, k_block: int,
+           delta: Optional[torch.Tensor]) -> None:
     c = cfg.c
     live_cap, ref_len, n_valid = (int(v) for v in lens)
     dev = cols.device
@@ -113,12 +177,19 @@ def _check(state: OTWState, cols: torch.Tensor, lens: Tuple[int, int, int], cfg:
         "window": (state.window, torch.float32, (c + 1, c + 1)),
         "ref": (state.ref, torch.float32, (c + ref_len, f)),
         "live": (state.live, torch.float32, (c + live_cap, f)),
-        "path_x": (state.path_x, torch.int32, None),
-        "path_y": (state.path_y, torch.int32, state.path_x.shape),
         "scalars": (state.scalars, torch.int32, (N_SCALARS,)),
         "status": (state.status, torch.int32, (N_STATUS,)),
         "cols": (cols, torch.float32, None),
     }
+    if delta is None:
+        if state.path_x is None or state.path_y is None:
+            raise ValueError("a whole-path launch needs the state's path buffers (or pass a delta row)")
+        want["path_x"] = (state.path_x, torch.int32, None)
+        want["path_y"] = (state.path_y, torch.int32, state.path_x.shape)
+        if state.path_x.ndim != 1:
+            raise ValueError("path buffers must be 1-D")
+    else:
+        want["delta"] = (delta, torch.int32, (N_STATUS + 2 * delta_slots(cfg, k_block),))
     for name, (x, dtype, shape) in want.items():
         if x.device != dev:
             raise ValueError(f"{name} is on {x.device}, cols on {dev}")
@@ -128,8 +199,6 @@ def _check(state: OTWState, cols: torch.Tensor, lens: Tuple[int, int, int], cfg:
             raise ValueError(f"{name} must have shape {tuple(shape)}, got {tuple(x.shape)}")
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if state.path_x.ndim != 1:
-        raise ValueError("path buffers must be 1-D")
     if cols.ndim != 2 or cols.shape[1] != f:
         raise ValueError(f"cols must be (k, {f}), got {tuple(cols.shape)}")
     if not 0 <= n_valid <= cols.shape[0] <= k_block:
@@ -140,19 +209,31 @@ def _check(state: OTWState, cols: torch.Tensor, lens: Tuple[int, int, int], cfg:
         raise ValueError(f"reference length {ref_len} shorter than search band {c}")
 
 
-def insert_block(state: OTWState, cols: torch.Tensor, lens: Tuple[int, int, int], cfg: OnlineConfig, k_block: int) -> None:
+def delta_views(delta: torch.Tensor, cfg: OnlineConfig, k_block: int):
+    """(status, dx, dy) views of one delta row ``[status | dx | dy]``."""
+    d_pad = delta_slots(cfg, k_block)
+    return delta[:N_STATUS], delta[N_STATUS : N_STATUS + d_pad], delta[N_STATUS + d_pad :]
+
+
+def insert_block(state: OTWState, cols: torch.Tensor, lens: Tuple[int, int, int], cfg: OnlineConfig, k_block: int,
+                 delta: Optional[torch.Tensor] = None) -> None:
     """Run up to ``k_block`` streaming inserts — the rows of ``cols`` (k, F),
     the first ``n_valid`` of them — updating ``state`` in place.
 
-    ``lens = (live_cap, ref_len, n_valid)``.  CUDA tensors launch the
-    kernel (and count in :data:`launches`); CPU tensors run
-    :func:`insert_block_reference`.  Nothing falls back: a failed build or
-    launch raises."""
-    global launches
+    ``lens = (live_cap, ref_len, n_valid)``.  With ``delta`` None the
+    launch commits points to the state's whole-path buffers and its status
+    to ``state.status``; with ``delta`` an int32 row of
+    ``8 + 2·delta_slots(cfg, k_block)`` it writes
+    ``[status | dx | dy]`` there (slots past the launch's points read 0).
+
+    CUDA tensors launch the kernel (and count in :data:`launches` or
+    :data:`delta_launches`); CPU tensors run :func:`insert_block_reference`.
+    Nothing falls back: a failed build or launch raises."""
+    global launches, delta_launches
     if cols.device.type == "cpu":
-        insert_block_reference(state, cols, lens, cfg, k_block)
+        insert_block_reference(state, cols, lens, cfg, k_block, delta)
         return
-    _check(state, cols, lens, cfg, k_block)
+    _check(state, cols, lens, cfg, k_block, delta)
     if cols.device.type != "cuda":
         raise ValueError(f"no otw_insert kernel for device {cols.device}")
     c = cfg.c
@@ -160,20 +241,27 @@ def insert_block(state: OTWState, cols: torch.Tensor, lens: Tuple[int, int, int]
 
     lib = _build.load("otw_insert").lib
     live_cap, ref_len, n_valid = (int(v) for v in lens)
+    if delta is None:
+        status, path_x, path_y = state.status, state.path_x, state.path_y
+    else:
+        status, path_x, path_y = delta_views(delta, cfg, k_block)
+    work = window_workspace(lib, c, 1, cols.device)
     with torch.cuda.device(cols.device):
         stream = torch.cuda.current_stream(cols.device).cuda_stream
         err = lib.otw_insert_block(
-            state.window.data_ptr(), state.ref.data_ptr(), state.live.data_ptr(),
-            state.path_x.data_ptr(), state.path_y.data_ptr(), state.scalars.data_ptr(),
-            state.status.data_ptr(), cols.data_ptr(),
-            c, state.ref.shape[1], state.path_x.shape[0], live_cap, ref_len, n_valid,
+            state.window.data_ptr(), None if work is None else work.data_ptr(), state.ref.data_ptr(),
+            state.live.data_ptr(), path_x.data_ptr(), path_y.data_ptr(), state.scalars.data_ptr(),
+            status.data_ptr(), cols.data_ptr(),
+            c, state.ref.shape[1], path_x.shape[0], live_cap, ref_len, n_valid,
             cfg.sentinel, cfg.max_run_count, int(cfg.monotone_path),
-            int(cfg.euclidean), cfg.loop_iters, stream,
+            int(cfg.euclidean), cfg.loop_iters, int(delta is not None), stream,
         )
     if err != 0:
-        # e.g. a band too wide for shared memory: the (c+1)² window must fit
         raise RuntimeError(f"otw_insert_block launch failed (c={c}): {lib.otw_error_string(err).decode()}")
-    launches += 1
+    if delta is None:
+        launches += 1
+    else:
+        delta_launches += 1
 
 
 # ---------------------------------------------------------------------------
@@ -262,15 +350,17 @@ def best_point(w, t: int, j: int, c: int) -> Tuple[int, int]:
 
 
 def append_point(path_x, path_y, x: int, y: int, plen: int, lastx: int, lasty: int,
-                 cfg: OnlineConfig) -> Tuple[int, int, int]:
-    """Commit (x, y) at slot ``plen`` unless LiveNoteV2's monotone guard
-    rejects it (pallas_otw.py:181-194); a point past the buffer is counted
-    but not stored.  Returns ``(plen, lastx, lasty)``."""
+                 cfg: OnlineConfig, base: int = 0) -> Tuple[int, int, int]:
+    """Commit (x, y) at path index ``plen`` — slot ``plen − base`` of the
+    buffers (``base`` 0 for a whole path, the launch's starting plen for a
+    delta row) — unless LiveNoteV2's monotone guard rejects it
+    (pallas_otw.py:181-194); a point outside the buffer is counted but not
+    stored.  Returns ``(plen, lastx, lasty)``."""
     if cfg.monotone_path and plen > 0 and not (x > lastx and y >= lasty):
         return plen, lastx, lasty
-    if plen < path_x.shape[0]:
-        path_x[plen] = x
-        path_y[plen] = y
+    if 0 <= plen - base < path_x.shape[0]:
+        path_x[plen - base] = x
+        path_y[plen - base] = y
     return plen + 1, x, y
 
 
@@ -287,14 +377,16 @@ def set_direction(x: int, y: int, t: int, j: int, rc: int, prev: int, cfg: Onlin
     return d, (rc + 1 if d == prev else 1), (d if d != BOTH else prev)
 
 
-def insert_block_reference(state: OTWState, cols: torch.Tensor, lens: Tuple[int, int, int], cfg: OnlineConfig, k_block: int) -> None:
-    """Plain PyTorch version of the kernel, on any device: the same window
-    algorithm on tensors, with the scalar state machine of
+def insert_block_reference(state: OTWState, cols: torch.Tensor, lens: Tuple[int, int, int], cfg: OnlineConfig,
+                           k_block: int, delta: Optional[torch.Tensor] = None) -> None:
+    """Plain PyTorch version of the kernel, in both modes, on any device: the
+    same window algorithm on tensors, with the scalar state machine of
     ``_insert_block_body`` (pallas_otw.py:644-746) in Python integers —
     the first-insert origin, the "ran out of room" freeze at
     ``t >= live_cap``, the bounded column phase with the sticky overflow
-    flag, and stop-and-freeze once ``j`` passes the reference."""
-    _check(state, cols, lens, cfg, k_block)
+    flag, and stop-and-freeze once ``j`` passes the reference.  A delta row
+    that would hold more than its slots sets the overflow flag."""
+    _check(state, cols, lens, cfg, k_block, delta)
     live_cap, ref_len, n_valid = (int(v) for v in lens)
     c = cfg.c
     w, ref, live = state.window, state.ref, state.live
@@ -302,6 +394,13 @@ def insert_block_reference(state: OTWState, cols: torch.Tensor, lens: Tuple[int,
     sc = state.scalars.tolist()
     t, j, rc, prev, plen, lastx, lasty = (sc[s] for s in (S_T, S_J, S_RC, S_PREV, S_PLEN, S_LASTX, S_LASTY))
     first, stopped, direction, overflow = bool(sc[S_FIRST]), bool(sc[S_STOPPED]), sc[S_DIR], bool(sc[S_OVERFLOW])
+    if delta is None:
+        status, path_x, path_y, base = state.status, state.path_x, state.path_y, 0
+    else:
+        status, path_x, path_y = delta_views(delta, cfg, k_block)
+        path_x.zero_()
+        path_y.zero_()
+        base = plen
 
     for k in range(n_valid):
         if stopped:
@@ -329,15 +428,17 @@ def insert_block_reference(state: OTWState, cols: torch.Tensor, lens: Tuple[int,
                     break
                 col_update(w, ref, live, t_new, j, cfg)
             x, y = best_point(w, t_new, j, c)
-            plen, lastx, lasty = append_point(state.path_x, state.path_y, x, y, plen, lastx, lasty, cfg)
+            plen, lastx, lasty = append_point(path_x, path_y, x, y, plen, lastx, lasty, cfg, base)
             d, rc, prev = set_direction(x, y, t_new, j, rc, prev, cfg)
             active = d == COL
         direction = d
         overflow = overflow or active
         t = t_new
+    if delta is not None and plen - base > path_x.shape[0]:
+        overflow = True
 
     sc[S_T], sc[S_J], sc[S_RC], sc[S_PREV] = t, j, rc, prev
     sc[S_PLEN], sc[S_LASTX], sc[S_LASTY] = plen, lastx, lasty
     sc[S_FIRST], sc[S_STOPPED], sc[S_DIR], sc[S_OVERFLOW] = int(first), int(stopped), direction, int(overflow)
     state.scalars.copy_(torch.tensor(sc, dtype=torch.int32))
-    state.status.copy_(torch.tensor([int(stopped) | (int(overflow) << 1), plen, lastx, lasty, 0, 0, 0, 0], dtype=torch.int32))
+    status.copy_(torch.tensor([int(stopped) | (int(overflow) << 1), plen, lastx, lasty, 0, 0, 0, 0], dtype=torch.int32))

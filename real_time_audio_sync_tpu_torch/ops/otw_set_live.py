@@ -16,7 +16,9 @@ What bounds it on an H100: latency.  One pair is one thread block running
 a serial chain of about t + j band steps over a few KB of state; the
 pairs of a batch run side by side, each leaving on its own ``done``.
 Device memory holds the padded feature rows (read by the band cells) and
-receives the path points and scalars.
+receives the path points and scalars.  A band whose window does not fit
+in shared memory takes a global-memory workspace of one window per pair
+(``otw_insert.window_route``), in the same kernel.
 
 Layout (:func:`pack`): ``ref_rows`` (R, c + n_max, F) with c leading zero
 rows (row c+j ↔ reference frame j), R = 1 when every pair shares one
@@ -49,6 +51,7 @@ from real_time_audio_sync_tpu_torch.ops.otw_insert import (
     col_update,
     row_update,
     set_direction,
+    window_workspace,
 )
 
 #: per-pair output scalars: plen, t, j, stopped, then zeros
@@ -145,16 +148,16 @@ def batched_set_live(ref_rows: torch.Tensor, live_rows: torch.Tensor, lens: torc
     path_x = torch.zeros((b, p_len), dtype=torch.int32, device=dev)
     path_y = torch.zeros((b, p_len), dtype=torch.int32, device=dev)
     out = torch.zeros((b, N_OUT), dtype=torch.int32, device=dev)
+    work = window_workspace(lib, c, b, dev)  # None: the windows fit in shared memory
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.otw_set_live(
             ref_rows.data_ptr(), live_rows.data_ptr(), lens.data_ptr(), path_x.data_ptr(), path_y.data_ptr(),
-            out.data_ptr(), b, c, f, p_len, ref_rows.shape[1], live_rows.shape[1], int(ref_rows.shape[0] == 1),
+            out.data_ptr(), None if work is None else work.data_ptr(), b, c, f, p_len, ref_rows.shape[1], live_rows.shape[1], int(ref_rows.shape[0] == 1),
             cfg.sentinel, cfg.max_run_count, cfg.run_count_init, int(cfg.monotone_path), int(cfg.euclidean),
             stream,
         )
     if err != 0:
-        # e.g. a band too wide for shared memory: the (c+1)² window must fit
         raise RuntimeError(f"otw_set_live launch failed (c={c}): {lib.otw_set_live_error_string(err).decode()}")
     launches += 1
     return path_x, path_y, out

@@ -64,9 +64,15 @@ class ScoreFollower:
     mirrors the 'r' key toggle (on stop a field log in the reference's
     exact format is written, livenote_live.py:150-154).
 
+    The positional parameters are the JAX package's, in its order.
     ``fused=True`` runs the fused K-insert engine on ``device``: chroma and
     alignment both run there, and the score position comes from the polled
-    status vector, never from a device synchronization.
+    status vector, never from a device synchronization.  The engine picks
+    its layout as the JAX package's does: a reference of
+    ``_LONG_REF_THRESHOLD`` frames or more (about 9.3 minutes) takes the
+    long-reference delta layout.  ``dtype`` is the reference chroma's
+    (the kernel is float32); ``fused_interpret`` is accepted and ignored,
+    since the device decides where the kernel runs.
     """
 
     def __init__(
@@ -75,8 +81,12 @@ class ScoreFollower:
         engine: str = "otw",
         params: Optional[dict] = None,
         log_dir: Optional[str] = None,
-        *,
+        dtype=np.float32,
+        use_blocks: bool = False,
+        pipelined: bool = False,
         fused: bool = False,
+        fused_interpret: bool = False,
+        *,
         device="cuda",
     ):
         from real_time_audio_sync_tpu_torch.eval.corpus import DEFAULT_PARAMS
@@ -84,10 +94,12 @@ class ScoreFollower:
         from real_time_audio_sync_tpu_torch.models.fused_streaming import FusedStreamingEngine
         from real_time_audio_sync_tpu_torch.models.online_core import ENGINE_OVERRIDES
 
-        if not fused:
+        del fused_interpret  # the tensors' device decides
+        if not fused or use_blocks or pipelined:
             raise NotImplementedError(
-                "ScoreFollower(fused=False): the XLA-engine modes (sync, use_blocks, pipelined) "
-                "are not ported yet: ROADMAP.md Queue 1, item 1")
+                f"ScoreFollower(fused={fused}, use_blocks={use_blocks}, pipelined={pipelined}): the "
+                "XLA-engine modes (sync, use_blocks, pipelined) are not ported yet: ROADMAP.md "
+                "Queue 1, item 1")
         if engine not in ("otw", "livenote", "livenote_v2"):
             # the follower feeds plain chroma; the diff-feature engine
             # (livenote_v2_diff) belongs to the corpus harness, not the live app
@@ -97,9 +109,9 @@ class ScoreFollower:
         self.params = dict(params or DEFAULT_PARAMS)
         self.device = torch.device(device)
 
-        ref_seq = wav_to_chroma(ref_wav, device=self.device)
+        ref_seq = wav_to_chroma(ref_wav, dtype, device=self.device)
         self.engine = FusedStreamingEngine(
-            ref_seq, self.params, cfg_overrides=ENGINE_OVERRIDES[engine], device=self.device)
+            ref_seq, self.params, cfg_overrides=ENGINE_OVERRIDES[engine], device=self.device, long_ref=None)
 
         csv_path = ref_wav[:-4] + ".csv"
         self.ground_truth = GroundTruth.from_csv(csv_path) if os.path.exists(csv_path) else None

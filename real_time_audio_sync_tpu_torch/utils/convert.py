@@ -4,10 +4,13 @@ The system has no weights: its parameters are the chroma filterbank
 (copied bit-identically) and the streaming engine state.  The JAX fused
 engine keeps that state in TPU layouts — a (8,128)-tiled window, the live
 history transposed onto 128 lanes, 128-rounded path buffers — and the port
-keeps the canonical layout of :class:`~..ops.otw_insert.OTWState`.  Both
-functions take and return the state tuple in the engine's order
-``(window, live, path_x, path_y, scalars)``; the reference features are
-not state (each engine builds them from the same chroma).
+keeps the canonical layout of :class:`~..ops.otw_insert.OTWState`.  The
+standard-layout functions take and return the state tuple in the engine's
+order ``(window, live, path_x, path_y, scalars)``; the long-reference
+functions take and return ``(window, live, scalars, host_path)``, where the
+JAX engine's live history is a sliding window of rows and the committed
+path lives on the host.  The reference features are not state (each engine
+builds them from the same chroma).
 """
 
 from __future__ import annotations
@@ -16,6 +19,10 @@ import numpy as np
 import torch
 
 _LANES, _SUBLANES = 128, 8
+# scalar slots (pallas_otw.py:638-641, 865): t, first insert pending, and
+# the JAX long kernel's live-window base (the virtual live row at physical
+# row 0); the port's kernel leaves slot 11 alone
+_S_T, _S_FIRST, _S_LIVE_BASE = 0, 7, 11
 
 
 def _round_up(x: int, m: int) -> int:
@@ -63,3 +70,62 @@ def otw_state_to_jax(window, live, path_x, path_y, scalars, *, c: int, n: int, f
     px[: path_x.shape[0]] = host(path_x)
     py[: path_y.shape[0]] = host(path_y)
     return w, live_t, px, py, host(scalars).astype(np.int32)
+
+
+def _live_rows_written(scalars, c: int, cap: int):
+    """Virtual live rows ``[lo, hi)`` that hold frames: row c+t ↔ frame t,
+    written up to frame min(t, cap-1) once the first insert ran."""
+    if int(scalars[_S_FIRST]):
+        return c, c
+    return c, c + min(int(scalars[_S_T]), cap - 1) + 1
+
+
+def long_state_from_jax(w, live_win, scalars, host_path, *, c: int, n: int, f: int):
+    """A JAX long-reference engine's state (numpy: the window, the sliding
+    live window, the scalars, and its host path (P, 2)) → the port's
+    ``(window, live, scalars, host_path)``, CPU tensors and an int32 array.
+
+    The live window's physical row p is virtual live row ``base + p``
+    (``base`` = scalar slot 11).  Rows before ``base`` are gone from the JAX
+    state; the band never reads them again (it reads rows t..t+c, and
+    base ≤ t), so the port's rows there stay zero."""
+    cap = 2 * n
+    sc = np.array(scalars, dtype=np.int32)
+    base = int(sc[_S_LIVE_BASE])
+    live = np.zeros((c + cap, f), np.float32)
+    lo, hi = _live_rows_written(sc, c, cap)
+    lo = max(lo, base)
+    if hi > lo:
+        live[lo:hi] = np.asarray(live_win)[lo - base : hi - base, :f]
+    return (
+        torch.from_numpy(np.array(np.asarray(w)[: c + 1, : c + 1], dtype=np.float32)),
+        torch.from_numpy(live),
+        torch.from_numpy(sc),
+        np.array(host_path, dtype=np.int32).reshape(-1, 2),
+    )
+
+
+def long_state_to_jax(window, live, scalars, host_path, *, c: int, n: int, f: int, k_block: int):
+    """The port's long-reference state → the JAX long engine's (window,
+    live window, scalars, host path), the inverse of
+    :func:`long_state_from_jax` for the rows the band can still read.  The
+    live window starts at the current t (scalar slot 11 = t), so the JAX
+    kernel's next realignment moves nothing; its size is the JAX engine's
+    ``_long_geometry`` for band ``c`` and ``k_block``."""
+    cap = 2 * n
+    w_sub, w_lane = _round_up(c + 1, _SUBLANES), _round_up(c + 1, _LANES)
+    l_win = _round_up(c + k_block + 16, _SUBLANES)
+    l_pad = l_win + _round_up(k_block + 8, _SUBLANES)
+
+    def host(x):
+        return x.detach().cpu().numpy()
+
+    sc = host(scalars).astype(np.int32).copy()
+    base = int(sc[_S_T])
+    sc[_S_LIVE_BASE] = base
+    w = np.zeros((w_sub, w_lane), np.float32)
+    w[: c + 1, : c + 1] = host(window)
+    live_win = np.zeros((l_pad, _LANES), np.float32)
+    rows = host(live)[base : min(base + l_pad, c + cap)]
+    live_win[: rows.shape[0], :f] = rows
+    return w, live_win, sc, np.array(host_path, dtype=np.int32).reshape(-1, 2)

@@ -104,3 +104,54 @@ def test_importing_the_port_turns_tf32_off():
 
     assert torch.backends.cuda.matmul.allow_tf32 is False
     assert torch.backends.cudnn.allow_tf32 is False
+
+
+SPELLINGS = [
+    (np.float32, np.float32), ("float32", np.float32), (torch.float32, np.float32), (np.dtype("float32"), np.float32),
+    (np.float64, np.float64), ("float64", np.float64), (torch.float64, np.float64),
+]
+
+
+@pytest.mark.parametrize("spelling,np_dtype", SPELLINGS, ids=[str(s) for s, _ in SPELLINGS])
+def test_every_dtype_spelling_matches_jax(tmp_path, random_wav, spelling, np_dtype):
+    """The chroma entry points take the JAX package's dtype spellings — numpy
+    types, names and torch dtypes — and give JAX's output in that dtype."""
+    atol = 1e-12 if np_dtype is np.float64 else 1e-5
+    want_t = torch.float64 if np_dtype is np.float64 else torch.float32
+    path = str(tmp_path / "x.wav")
+    write_wav(path, random_wav)
+    wav = random_wav.astype(np_dtype)
+    cases = [
+        (tchroma.chroma_from_samples(wav, spelling, device="cpu"), jchroma.chroma_from_samples(wav, np_dtype)),
+        (tchroma.wav_to_chroma(path, spelling, device="cpu"), jchroma.wav_to_chroma(path, np_dtype)),
+        (tchroma.wav_to_chroma_diff(path, spelling, device="cpu"), jchroma.wav_to_chroma_diff(path, np_dtype)),
+        (tchroma.chroma_diff_from_samples(wav, spelling, device="cpu"),
+         jchroma.chroma_diff_from_samples(wav, np_dtype)),
+        (tchroma.wav_to_chroma_col(wav[:4096], spelling, device="cpu"), jchroma.wav_to_chroma_col(wav[:4096], np_dtype)),
+    ]
+    for got, want in cases:
+        assert got.dtype == want_t
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=atol)
+
+
+@pytest.mark.parametrize("bucket", [True, False])
+def test_bucket_is_accepted_and_changes_nothing(random_wav, bucket):
+    """JAX's chroma_from_samples buckets lengths to spare compiles; the port
+    takes the keyword (by name and in JAX's position) and gives the same
+    columns either way."""
+    wav = random_wav.astype(np.float32)
+    want = jchroma.chroma_from_samples(wav, np.float32, True, bucket)
+    by_name = tchroma.chroma_from_samples(wav, np.float32, bucket=bucket, device="cpu")
+    positional = tchroma.chroma_from_samples(wav, np.float32, True, bucket, device="cpu")
+    assert torch.equal(by_name, positional)
+    assert torch.equal(by_name, tchroma.chroma_from_samples(wav, device="cpu"))
+    np.testing.assert_allclose(by_name.numpy(), want, rtol=0, atol=1e-5)
+
+
+def test_top_level_exports_the_chroma_entry_points():
+    import real_time_audio_sync_tpu as jax_pkg
+    import real_time_audio_sync_tpu_torch as port
+
+    for name in ("wav_to_chroma", "wav_to_chroma_col", "wav_to_chroma_diff"):
+        assert getattr(port, name) is getattr(tchroma, name)
+        assert hasattr(jax_pkg, name)

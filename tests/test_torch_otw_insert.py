@@ -1,7 +1,9 @@
 """The port's plain K-insert (``ops/otw_insert.insert_block_reference``)
 against the JAX Pallas kernel ``_pallas_insert_block`` run in interpret
 mode, launch by launch, with state carried through the converters of
-``utils/convert.py``.
+``utils/convert.py``; its delta mode against its whole-path mode and
+against the JAX long-reference kernel ``_pallas_insert_block_long``; and
+the band-width rule that sends wide windows to global memory.
 
 Tolerances: status, scalars, path and live history must be equal.  The
 window is held to rtol 1e-6 (atol 1e-7 for cells near zero): the port sums
@@ -17,7 +19,7 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
 from real_time_audio_sync_tpu.models.fused_streaming import FusedStreamingEngine as JaxEngine  # noqa: E402
-from real_time_audio_sync_tpu.ops.pallas_otw import _pallas_insert_block  # noqa: E402
+from real_time_audio_sync_tpu.ops.pallas_otw import _pallas_insert_block, _pallas_insert_block_long  # noqa: E402
 from real_time_audio_sync_tpu_torch.models.online_core import ENGINE_OVERRIDES, OnlineConfig  # noqa: E402
 from real_time_audio_sync_tpu_torch.ops import otw_insert  # noqa: E402
 from real_time_audio_sync_tpu_torch.utils.convert import otw_state_from_jax, otw_state_to_jax  # noqa: E402
@@ -152,3 +154,120 @@ def test_mid_stream_state_carries_across():
     for got, want in zip(pair.jax_as_port(), (p.window, p.live, p.path_x, p.path_y, p.scalars)):
         np.testing.assert_array_equal(got.numpy(), want.numpy())
     pair.run(live, start=half + 8)
+
+
+# ---------------------------------------------------------------------------
+# Delta mode (TPU kernel _pallas_insert_block_long)
+# ---------------------------------------------------------------------------
+
+
+def _delta_row(cfg, k_block):
+    return torch.full((otw_insert.N_STATUS + 2 * otw_insert.delta_slots(cfg, k_block),), -7, dtype=torch.int32)
+
+
+@pytest.mark.parametrize("variant,c,mrc,k_block", CASES)
+def test_delta_mode_matches_whole_path_mode(variant, c, mrc, k_block):
+    """Launch by launch, the delta mode leaves the same window, live history
+    and scalars as the whole-path mode, reports the same status, and its row
+    holds exactly the points the whole path gained (zeros after them)."""
+    rng = np.random.default_rng(300 + 7 * c + k_block)
+    ref, live = _stream(rng, variant, n_ref=c + 15)
+    cfg = OnlineConfig(c=c, max_run_count=mrc, **ENGINE_OVERRIDES[variant])
+    n = ref.shape[1]
+    cap = 2 * n
+    whole = otw_insert.new_state(torch.from_numpy(ref), cfg, cap)
+    delta = otw_insert.new_state(torch.from_numpy(ref), cfg, cap, whole_path=False)
+    assert delta.path_x is None and delta.path_y is None
+    d_pad = otw_insert.delta_slots(cfg, k_block)
+    for s in range(0, live.shape[1], k_block):
+        rows = torch.from_numpy(np.ascontiguousarray(live[:, s : s + k_block].T))
+        lens = (cap, n, rows.shape[0])
+        plen0 = int(whole.scalars[otw_insert.S_PLEN])
+        otw_insert.insert_block_reference(whole, rows, lens, cfg, k_block)
+        row = _delta_row(cfg, k_block)
+        otw_insert.insert_block(delta, rows, lens, cfg, k_block, delta=row)  # CPU tensors: the plain version
+        for name in ("window", "live", "scalars"):
+            assert torch.equal(getattr(whole, name), getattr(delta, name)), name
+        assert torch.equal(row[:8], whole.status)
+        got = int(row[1]) - plen0
+        assert 0 <= got <= d_pad
+        assert torch.equal(row[8 : 8 + got], whole.path_x[plen0 : plen0 + got])
+        assert torch.equal(row[8 + d_pad : 8 + d_pad + got], whole.path_y[plen0 : plen0 + got])
+        assert not row[8 + got : 8 + d_pad].any() and not row[8 + d_pad + got :].any()
+    assert whole.scalars[otw_insert.S_STOPPED] == 1
+
+
+LONG_CASES = [("otw", 3, 3, 1), ("livenote", 10, 1, 2), ("livenote_v2", 25, 5, 8), ("livenote_v2_diff", 10, 3, 8)]
+
+
+@pytest.mark.parametrize("variant,c,mrc,k_block", LONG_CASES)
+def test_delta_mode_matches_jax_long_kernel_launch_by_launch(variant, c, mrc, k_block):
+    """The plain delta mode against the JAX long-reference kernel (interpret
+    mode) on one stream: equal status and equal committed points in every
+    launch's row."""
+    from real_time_audio_sync_tpu.ops.pallas_otw import _LANES, _SUBLANES, _long_geometry, _round_up as ru
+
+    rng = np.random.default_rng(500 + 7 * c + k_block)
+    ref, live = _stream(rng, variant, n_ref=c + 15)
+    f, n = ref.shape
+    cap = 2 * n
+    jeng = JaxEngine(ref, {"c": c, "max_run_count": mrc}, cfg_overrides=ENGINE_OVERRIDES[variant],
+                     k_block=k_block, interpret=True, long_ref=True)
+    jstate = jeng._state
+    _, _, _, jd_pad = _long_geometry(jeng.cfg, c, ru(c + 1, _LANES), k_block)
+    cfg = OnlineConfig(c=c, max_run_count=mrc, **ENGINE_OVERRIDES[variant])
+    assert otw_insert.delta_slots(cfg, k_block) == jd_pad
+    port = otw_insert.new_state(torch.from_numpy(ref), cfg, cap, whole_path=False)
+    plen0 = 0
+    for s in range(0, live.shape[1], k_block):
+        cols = live[:, s : s + k_block]
+        k = cols.shape[1]
+        block = np.zeros((ru(k_block, _SUBLANES), ru(f, _SUBLANES)), np.float32)
+        block[:k, :f] = cols.T
+        lens = np.asarray([cap, n, k, 0], np.int32)
+        w, lw, sc, status, dx, dy = _pallas_insert_block_long(lens, jeng.ref_t, block, *jstate, jeng.cfg,
+                                                              k_block, interpret=True)
+        jstate = (w, lw, sc)
+        row = _delta_row(cfg, k_block)
+        otw_insert.insert_block_reference(port, torch.from_numpy(np.ascontiguousarray(cols.T)), (cap, n, k), cfg,
+                                          k_block, delta=row)
+        status = np.asarray(status)
+        np.testing.assert_array_equal(row[:4].numpy(), status[:4])
+        got = int(status[1]) - plen0
+        np.testing.assert_array_equal(row[8 : 8 + got].numpy(), np.asarray(dx)[:got])
+        np.testing.assert_array_equal(row[8 + jd_pad : 8 + jd_pad + got].numpy(), np.asarray(dy)[:got])
+        np.testing.assert_array_equal(port.scalars.numpy()[:11], np.asarray(sc)[:11])
+        plen0 = int(status[1])
+    assert port.scalars[otw_insert.S_STOPPED] == 1
+
+
+def test_wide_band_route_is_chosen_above_the_shared_memory_limit():
+    """The (c+1)² window and the scratch of one block need
+    4·((c+1)² + 4·nt + 4·32) bytes; above the card's opt-in limit (232,448 B
+    on an H100) the window goes to global memory: c = 237 fits, c = 238
+    does not."""
+    h100 = 232448
+    assert otw_insert.shared_bytes(237) == 4 * (238 * 238 + 4 * 256 + 128) <= h100
+    assert otw_insert.shared_bytes(238) == 233092 > h100
+    assert otw_insert.shared_bytes(238, window_in_shared=False) == 4 * (4 * 256 + 128)
+    assert [otw_insert.window_route(c, h100) for c in (10, 50, 200, 237, 238, 400)] == \
+        ["shared"] * 4 + ["global"] * 2
+    # the route follows the limit the device reports, not a constant
+    assert otw_insert.window_route(50, 48 * 1024) == "shared"
+    assert otw_insert.window_route(150, 48 * 1024) == "global"
+    assert otw_insert.window_route(237, 10**6) == "shared"
+    # read through the kernel library, once per device; only a wide band allocates a workspace
+    class Lib:
+        calls = 0
+
+        def otw_band_shared_optin(self, index):
+            Lib.calls += 1
+            return h100
+
+    otw_insert._SHARED_LIMIT.pop(0, None)
+    try:
+        assert otw_insert.window_workspace(Lib(), 237, 3, torch.device("cuda", 0)) is None
+        assert otw_insert.window_workspace(Lib(), 100, 3, torch.device("cuda", 0)) is None
+        assert Lib.calls == 1
+    finally:
+        otw_insert._SHARED_LIMIT.pop(0, None)

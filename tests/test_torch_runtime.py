@@ -125,7 +125,63 @@ def test_follower_contract(steady):
     ref, _, _ = steady
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ScoreFollower(ref, "otw", PARAMS, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 1"):
+        ScoreFollower(ref, "otw", PARAMS, None, np.float32, True, False, True, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 1"):
+        ScoreFollower(ref, "otw", PARAMS, None, np.float32, False, True, True, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 1"):
+        ScoreFollower(ref, "otw", PARAMS, fused=False, device="cpu")
     with pytest.raises(ValueError, match="unknown follower engine"):
         ScoreFollower(ref, "livenote_v2_diff", PARAMS, fused=True, device="cpu")
     # the card unless the caller asks for the CPU
     assert inspect.signature(ScoreFollower).parameters["device"].default == "cuda"
+
+
+def test_follower_takes_the_jax_positional_order(steady):
+    """``(ref_wav, engine, params, log_dir, dtype, use_blocks, pipelined,
+    fused, fused_interpret)`` as in the JAX package; ``fused_interpret`` is
+    accepted and ignored."""
+    ref, _, buffers = steady
+    jax_names = list(inspect.signature(JaxFollower).parameters)
+    port_params = inspect.signature(ScoreFollower).parameters
+    assert list(port_params)[: len(jax_names)] == jax_names
+    assert port_params["device"].kind is inspect.Parameter.KEYWORD_ONLY
+    for name in jax_names:
+        assert port_params[name].default == inspect.signature(JaxFollower).parameters[name].default, name
+    a = ScoreFollower(ref, "otw", PARAMS, None, np.float32, False, False, True, True, device="cpu")
+    b = ScoreFollower(ref, "otw", PARAMS, fused=True, device="cpu")
+    assert not a.engine.long_ref
+    _follow(a, buffers[:40])
+    _follow(b, buffers[:40])
+    assert a.path == b.path and len(a.path) > 0
+
+
+@pytest.mark.parametrize("engine", ["otw", "livenote_v2"])
+def test_long_reference_follower_matches_jax_follower(steady, engine, monkeypatch):
+    """With the long-reference threshold lowered below the reference's
+    length, both followers pick the delta layout by themselves; fed the same
+    (JAX frontend) columns, the port's path equals the JAX follower's."""
+    import real_time_audio_sync_tpu.models.fused_streaming as jfs
+    import real_time_audio_sync_tpu_torch.models.fused_streaming as tfs
+
+    ref, _, buffers = steady
+    monkeypatch.setattr(jfs, "_LONG_REF_THRESHOLD", 64)
+    monkeypatch.setattr(tfs, "_LONG_REF_THRESHOLD", 64)
+    monkeypatch.setattr(jfs, "_DELTA_STACK", 8)
+    monkeypatch.setattr(tfs, "_DELTA_STACK", 8)
+    from jax.experimental.pallas import tpu as pltpu
+
+    with pltpu.force_tpu_interpret_mode():
+        jf = JaxFollower(ref, engine, PARAMS, fused=True, fused_interpret=True)
+        assert jf.engine.long_ref and jf.engine.n >= 64
+        jf.engine.max_in_flight = 0  # coalesce launches (same path, fewer interpreted launches)
+        _follow(jf, buffers)
+    monkeypatch.setattr(tchroma, "wav_to_chroma",
+                        lambda path, dtype=torch.float32, *, device: torch.from_numpy(np.array(jchroma.wav_to_chroma(path))))
+    monkeypatch.setattr(tchroma, "chroma_frames",
+                        lambda frames: torch.from_numpy(np.array(jchroma.chroma_frames(jnp.asarray(frames.numpy())))))
+    port = ScoreFollower(ref, engine, PARAMS, fused=True, device="cpu")
+    assert port.engine.long_ref
+    _follow(port, buffers)
+    assert len(port.path) > 0
+    np.testing.assert_array_equal(np.asarray(port.path), np.asarray(jf.path))
