@@ -73,12 +73,14 @@ Phases, each raising on failure (the process then exits non-zero):
    ``ScoreFollower(ref, engine, PARAMS, fused=True, device="cuda")`` in
    2048-sample buffers for "otw" and "livenote_v2": the engine must choose
    the long-reference layout by itself, its path must equal a
-   ``long_ref=False`` engine's on the same columns, point for point; prints
+   ``long_ref=False`` engine's on the same columns, point for point, and
+   the plain version's in the long layout (a CPU engine); prints
    the real-time factor, the launches read from the counters, the pending
    delta entries a path read drains (one device-to-host copy each) and their
    bytes, and the device bytes per stream in each layout;
    (c) the delta mode's time at k_block 8 on that reference (profiler, CUDA
-   events, plain, and the bound of this run's launches).
+   events, plain, and the bound of this run's launches), the kernel's and
+   the plain version's delta rows and states EQUAL after those launches.
 
 The builds run in parallel (one ``nvcc`` per source).  Then one JSON line
 of per-kernel results, and last ``{"ok": true, "device": {...}}``.
@@ -924,7 +926,24 @@ def run_delta_stream(ref, live, cfg, k_block: int, device, what: str) -> float:
     return worst
 
 
-def phase_delta_vs_plain(device) -> float:
+def window_routes(bands, device) -> dict:
+    """Where each band's window lives on this card, as both band libraries
+    decide it (``otw_band_workspace_floats``); they must agree."""
+    import torch
+
+    from real_time_audio_sync_tpu_torch.ops import _build
+
+    index = torch.device(device).index or 0
+    routes = {}
+    for c in bands:
+        floats = {_build.load(lib).lib.otw_band_workspace_floats(c, index) for lib in ("otw_insert", "otw_set_live")}
+        if len(floats) != 1 or floats - {0, (c + 1) ** 2}:
+            raise AssertionError(f"band {c}: the band libraries ask for {floats} workspace floats")
+        routes[c] = "shared" if floats == {0} else "global"
+    return routes
+
+
+def phase_delta_vs_plain(device) -> None:
     """Phase 9 (a): the delta mode over phase 3's grid, and both modes and
     the set_live kernel at the wide bands."""
     import numpy as np
@@ -957,9 +976,10 @@ def phase_delta_vs_plain(device) -> float:
             cfg = OnlineConfig(c=c, max_run_count=3, **ENGINE_OVERRIDES[variant])
             ref, live = stream(rng, variant, c + 30, "stop")
             worst = max(worst, run_delta_stream(ref, live, cfg, 8, device, f"phase 9 [{variant} c={c} wide]"))
-    limit = otw_insert._SHARED_LIMIT[torch.device(device).index or 0]  # read by the first wide launch
-    routes = {c: otw_insert.window_route(c, limit) for c in WIDE_BANDS}
-    log(f"phase 9: wide bands {WIDE_BANDS} (windows: {routes}, shared-memory opt-in limit {limit} B): "
+    routes = window_routes((BANDS[-1],) + WIDE_BANDS, device)
+    if routes[238] != "global" or routes[400] != "global":
+        raise AssertionError(f"phase 9: the wide bands did not take the global window: {routes}")
+    log(f"phase 9: wide bands {WIDE_BANDS} (windows, as the band library chose them: {routes}): "
         f"K-insert kernel == plain in both modes for {len(VARIANTS)} variants, k_block 8, "
         f"{time.perf_counter() - t1:.1f} s")
 
@@ -994,11 +1014,10 @@ def phase_delta_vs_plain(device) -> float:
         packed = otw_set_live.pack([torch.from_numpy(ref_sl).to(device)], [torch.from_numpy(live_sl).to(device)], c)
         sl_ms = time_calls(lambda: otw_set_live.batched_set_live(*packed, cfg), 5)
         plen, t, j = otw_set_live.batched_set_live(*packed, cfg)[2][0, :3].tolist()
-        log(f"phase 9 [c={c}, window in {otw_insert.window_route(c, limit)} memory]: K-insert kernel "
+        log(f"phase 9 [c={c}, window in {routes[c]} memory]: K-insert kernel "
             f"{ins_ms:.4f} ms/launch at k_block {k} (CUDA events, {reps} launches, n={n}); set_live kernel "
             f"{sl_ms:.4f} ms/pair (CUDA events, 5 calls; {t} x {j} frames, {t + j - 1} band updates, "
             f"{plen} points, {sl_ms * 1e3 / max(t + j - 1, 1):.3f} us/update)")
-    return worst
 
 
 def render_concert(root: str):
@@ -1070,8 +1089,9 @@ def insert_bound(c: int, f: int, euclidean: bool, k: int, d_pad: int, launches: 
 
 
 def phase_concert(device, root: str):
-    """Phase 9 (b) and (c); returns (launches read, device ms, event ms,
-    plain ms, bound ms, bound by) for kernel #4's row."""
+    """Phase 9 (b) and (c); returns (launches read, max |diff| against the
+    plain version, device ms, event ms, plain ms, bound ms, bound by) for
+    kernel #4's row."""
     import numpy as np
     import torch
 
@@ -1124,11 +1144,21 @@ def phase_concert(device, root: str):
         std.flush()
         if not np.array_equal(std.path_array, path):
             raise AssertionError(f"{engine}: the long-reference path differs from the standard layout's")
+        # the same columns through the plain version in the long layout (CPU engine)
+        t1 = time.perf_counter()
+        plain = FusedStreamingEngine(eng._state.ref[PARAMS["c"]:].T.cpu(), PARAMS, ENGINE_OVERRIDES[engine],
+                                     k_block=32, device="cpu", long_ref=True)
+        plain.insert_block_nowait(cols.cpu())
+        plain.flush()
+        if not np.array_equal(plain.path_array, path):
+            raise AssertionError(f"{engine}: the kernel's long-reference path differs from the plain version's")
+        plain_s = time.perf_counter() - t1
         score = scorer.score(follower.path)
         size = stream_device_bytes(eng)
         log(f"phase 9 [concert {engine}]: {cols.shape[1]} hops vs {eng.n} ref frames, long_ref chosen by the engine; "
             f"{delta} delta launches read from the counter (mean {np.mean(eng.dispatched_block_sizes):.2f} "
-            f"frames/launch), 0 whole-path; path {len(path)} points == standard layout (k_block 32), last point "
+            f"frames/launch), 0 whole-path; path {len(path)} points == standard layout (k_block 32) == plain "
+            f"version in the long layout (CPU, {plain_s:.1f} s), last point "
             f"{tuple(int(v) for v in path[-1])}; stopped={follower.stopped}")
         log(f"phase 9 [concert {engine}]: wall {wall:.3f} s, real-time factor {audio_s / wall:.1f}; the path read "
             f"drained {entries} pending entries (one device-to-host copy each, {pending} B in all, "
@@ -1164,11 +1194,10 @@ def phase_concert(device, root: str):
     cfg = eng.cfg
     rows = cols.T.contiguous()
     base = otw_insert.new_state(eng._state.ref[PARAMS["c"]:].T.contiguous(), cfg, eng.cap, whole_path=False)
-    out = torch.empty((reps + 2, otw_insert.N_STATUS + 2 * otw_insert.delta_slots(cfg, k)), dtype=torch.int32,
-                      device=device)
+    width = otw_insert.N_STATUS + 2 * otw_insert.delta_slots(cfg, k)
     lens = (eng.cap, eng.n, k)
 
-    def timed(fn, state):
+    def timed(fn, state, out):
         for r in range(2):
             fn(state, rows[r * k : (r + 1) * k], lens, cfg, k, delta=out[r])
         sc0 = state.scalars.tolist()
@@ -1180,8 +1209,17 @@ def phase_concert(device, root: str):
         torch.cuda.synchronize()
         return start.elapsed_time(end) / reps, sc0, state.scalars.tolist()
 
-    event_ms, sc0, sc1 = timed(otw_insert.insert_block, clone_state(base))
-    plain_ms, _, _ = timed(otw_insert.insert_block_reference, clone_state(base))
+    # the kernel and the plain version from the same state on the same
+    # columns, each into rows of its own: rows and states must be equal
+    kern_st, plain_st = clone_state(base), clone_state(base)
+    out = torch.empty((reps + 2, width), dtype=torch.int32, device=device)
+    plain_out = torch.empty((reps + 2, width), dtype=torch.int32, device=device)
+    event_ms, sc0, sc1 = timed(otw_insert.insert_block, kern_st, out)
+    plain_ms, _, _ = timed(otw_insert.insert_block_reference, plain_st, plain_out)
+    if not torch.equal(out, plain_out):
+        raise AssertionError(f"phase 9 [otw_insert_block_long]: kernel and plain disagree on the delta rows "
+                             f"(max |diff| {max_abs_diff(out, plain_out)})")
+    err = compare_states(kern_st, plain_st, "phase 9 [otw_insert_block_long]")
     st = clone_state(base)
     dev_ms, traced = kernel_device_ms(
         lambda r: otw_insert.insert_block(st, rows[r * k : (r + 1) * k], lens, cfg, k, delta=out[r]), reps,
@@ -1193,9 +1231,10 @@ def phase_concert(device, root: str):
         f"device time {'not measured' if dev_ms is None else f'{dev_ms:.4f} ms'} (profiler, {traced} of {reps} "
         f"launches traced), {event_ms:.4f} ms back to back (CUDA events), plain {plain_ms:.4f} ms; bound "
         f"{bound_ms:.7f} ms by {bound_by} ({bytes_:.0f} B, {ops:.0f} ops a launch; {reps} launches: t +{dt}, "
-        f"j +{dj}, {points} points)")
+        f"j +{dj}, {points} points); kernel == plain over these {reps + 2} launches (delta rows, window, live "
+        f"history, scalars), window max |diff| {err}")
     log(f"phase 9: {time.perf_counter() - t0:.1f} s for (b) and (c)")
-    return launches_read, dev_ms, event_ms, plain_ms, bound_ms, bound_by
+    return launches_read, err, dev_ms, event_ms, plain_ms, bound_ms, bound_by
 
 
 def otw_insert_bound_ms(c: int = PARAMS["c"], k: int = 8, f: int = 12) -> float:
@@ -1246,7 +1285,7 @@ def main() -> int:
         wf = phase_dtw_main_path(device, root)
         sl = phase_set_live_main_path(device, root)
         t9 = time.perf_counter()
-        worst_delta = phase_delta_vs_plain(device)
+        phase_delta_vs_plain(device)
         concert = phase_concert(device, root)
         log(f"phase 9: {time.perf_counter() - t9:.1f} s in all")
 
@@ -1257,8 +1296,7 @@ def main() -> int:
     rows = {"otw_insert_block": (launches, worst, dev_ms, kern_ms, plain_ms, otw_insert_bound_ms(), "bytes")}
     rows.update(wf)
     rows.update(sl)
-    n_long, d_ms, e_ms, p_ms, b_ms, b_by = concert
-    rows["otw_insert_block_long"] = (n_long, worst_delta, d_ms, e_ms, p_ms, b_ms, b_by)
+    rows["otw_insert_block_long"] = concert
     kernels = []
     for name, (n_launch, err, d_ms, e_ms, p_ms, b_ms, b_by) in rows.items():
         _, source, replaces = KERNELS[name]

@@ -9,7 +9,7 @@
 //
 // Layout: a (c+1)^2 band-relative window W[a, b] = acc[t-c+a, j-c+b] in
 // shared memory (or, for bands too wide for it, in a global-memory
-// workspace of one window per block; see window_bytes), addressed through
+// workspace of one window per block; see otw_band_workspace_floats), addressed through
 // ring offsets (advancing t or j moves an
 // offset instead of rolling the window).  Feature rows sit in device memory
 // with c leading zero rows: ref row c+j is reference frame j, live row c+t
@@ -54,10 +54,13 @@ __device__ __forceinline__ void take_min(float& v, int& i, float v2, int i2) {
   }
 }
 
+// Threads of one block of a band kernel: one per band position, in whole warps.
+inline int band_threads(int c) { return ((c + 1 + 31) / 32) * 32; }
+
 // Dynamic shared memory of one block of a band kernel with nt threads:
 // the window (unless it lives in a global workspace) and the scan and
-// argmin scratch.  ops/otw_insert.py:shared_bytes mirrors this to choose
-// the window's route.
+// argmin scratch.  otw_band_workspace_floats below chooses the window's
+// route from it.
 inline size_t window_bytes(int c) { return sizeof(float) * (size_t)(c + 1) * (c + 1); }
 inline size_t shared_bytes(int c, int nt, bool window_in_shared) {
   return (window_in_shared ? window_bytes(c) : 0) + sizeof(float) * (4 * (size_t)nt + 4 * MAX_WARPS);
@@ -248,11 +251,15 @@ __device__ inline int set_direction(const float* W, const Ring& ring, int t, int
 
 }  // namespace otw_band
 
-// The most dynamic shared memory one block may opt in to on `device`
-// (cudaDevAttrMaxSharedMemoryPerBlockOptin), or -1 on error: the wrappers
-// read it to choose where the (c+1)^2 window lives.
-extern "C" int otw_band_shared_optin(int device) {
-  int v = 0;
-  if (cudaDeviceGetAttribute(&v, cudaDevAttrMaxSharedMemoryPerBlockOptin, device) != cudaSuccess) return -1;
-  return v;
+// Floats of global-memory window workspace one block of a band-c kernel
+// needs on `device`: 0 when the window and the scratch fit the most dynamic
+// shared memory a block may opt in to (cudaDevAttrMaxSharedMemoryPerBlockOptin),
+// else (c+1)^2; -1 when the limit cannot be read.  The wrappers allocate
+// what it returns and pass no workspace for 0, so the route is decided here
+// alone.
+extern "C" int otw_band_workspace_floats(int c, int device) {
+  int limit = 0;
+  if (cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, device) != cudaSuccess) return -1;
+  if (otw_band::shared_bytes(c, otw_band::band_threads(c), true) <= (size_t)limit) return 0;
+  return (c + 1) * (c + 1);
 }

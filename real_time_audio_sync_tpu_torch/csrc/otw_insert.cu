@@ -168,7 +168,7 @@ extern "C" int otw_insert_block(void* w, void* w_work, void* ref, void* live, vo
            static_cast<int*>(scalars), static_cast<int*>(status), static_cast<const float*>(cols),
            c, f, p_len, live_cap, ref_len, n_valid, sentinel, max_run_count, monotone,
            euclidean, loop_iters, delta};
-  const int nt = ((c + 1 + 31) / 32) * 32;
+  const int nt = band_threads(c);
   const bool in_shared = w_work == nullptr;
   return launch_band(in_shared ? otw_insert_kernel<true> : otw_insert_kernel<false>, 1, nt,
                      shared_bytes(c, nt, in_shared), static_cast<cudaStream_t>(stream), p);

@@ -124,7 +124,7 @@ extern "C" int otw_set_live(void* ref, void* live, void* lens, void* path_x, voi
            static_cast<const int*>(lens), static_cast<int*>(path_x), static_cast<int*>(path_y),
            static_cast<int*>(out), static_cast<float*>(w_work), c, f, p_len, ref_rows, live_rows,
            shared_ref, sentinel, max_run_count, run_count_init, monotone, euclidean};
-  const int nt = ((c + 1 + 31) / 32) * 32;
+  const int nt = band_threads(c);
   const bool in_shared = w_work == nullptr;
   return launch_band(in_shared ? otw_set_live_kernel<true> : otw_set_live_kernel<false>, batch, nt,
                      shared_bytes(c, nt, in_shared), static_cast<cudaStream_t>(stream), p);

@@ -39,12 +39,12 @@ SIGNATURES = {
             ctypes.c_int,
         ),
         "otw_error_string": ([_I], ctypes.c_char_p),
-        "otw_band_shared_optin": ([_I], ctypes.c_int),
+        "otw_band_workspace_floats": ([_I, _I], ctypes.c_int),
     },
     "otw_set_live": {
         "otw_set_live": ([_P] * 7 + [_I] * 7 + [ctypes.c_float] + [_I] * 4 + [_P], ctypes.c_int),
         "otw_set_live_error_string": ([_I], ctypes.c_char_p),
-        "otw_band_shared_optin": ([_I], ctypes.c_int),
+        "otw_band_workspace_floats": ([_I, _I], ctypes.c_int),
     },
     "wavefront": {
         "wavefront_dp": ([_P] * 3 + [_L] * 2 + [_I] * 4 + [ctypes.c_double] * 3 + [_I] * 4 + [_P], ctypes.c_int),

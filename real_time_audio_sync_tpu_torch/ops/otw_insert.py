@@ -26,8 +26,9 @@ in registers (every thread computes it identically from the same reduced
 values), and touches device memory only for the 12-float feature rows, the
 path points and the launch's prologue/epilogue.  A band whose window does
 not fit the card's shared memory per block (c ≥ 238 on an H100) keeps its
-window in a global-memory workspace instead (:func:`window_route`): the
-same kernel with another pointer, chosen by band width.
+window in a global-memory workspace instead (:func:`window_workspace`):
+the same kernel source with the window in another memory space, chosen by
+band width.
 
 State at a launch boundary (:class:`OTWState`, all on one device) is
 updated IN PLACE by each launch — this replaces the TPU kernel's
@@ -68,9 +69,6 @@ N_STATUS = 8
 launches = 0
 delta_launches = 0
 
-#: warps of the argmin scratch (otw_band.cuh MAX_WARPS)
-MAX_WARPS = 32
-
 
 def delta_slots(cfg: OnlineConfig, k_block: int) -> int:
     """Point slots ``d_pad`` of one delta row: a launch commits at most
@@ -78,39 +76,26 @@ def delta_slots(cfg: OnlineConfig, k_block: int) -> int:
     return k_block * cfg.loop_iters + 8
 
 
-def shared_bytes(c: int, window_in_shared: bool = True) -> int:
-    """Dynamic shared memory of one block of the band kernels at band ``c``
-    (``otw_band.cuh`` ``shared_bytes``): the (c+1)² window unless it lives
-    in a global workspace, plus the scan and argmin scratch."""
-    nt = -(-(c + 1) // 32) * 32
-    return 4 * (((c + 1) ** 2 if window_in_shared else 0) + 4 * nt + 4 * MAX_WARPS)
-
-
-def window_route(c: int, limit: int) -> str:
-    """Where a band-``c`` kernel keeps its window on a card allowing
-    ``limit`` bytes of shared memory per block: ``"shared"`` when it fits,
-    else ``"global"`` (a workspace of one window per block)."""
-    return "shared" if shared_bytes(c) <= limit else "global"
-
-
-_SHARED_LIMIT: dict = {}
+_WORKSPACE_FLOATS: dict = {}
 
 
 def window_workspace(lib, c: int, blocks: int, device: torch.device):
-    """The global-memory window workspace (blocks, c+1, c+1) f32 for a launch
+    """The global-memory window workspace (blocks, floats) f32 for a launch
     of ``blocks`` blocks at band ``c``, or None when the windows fit in
-    shared memory.  The limit is the device's
-    ``cudaDevAttrMaxSharedMemoryPerBlockOptin``, read once per device
-    through ``lib`` (either band library)."""
+    shared memory.  ``floats`` — 0 or (c+1)² — is what the band library
+    (``lib``, either one) says a block needs on this device
+    (``otw_band_workspace_floats``, from the device's shared-memory opt-in
+    limit); it is asked once per device and band."""
     index = device.index if device.index is not None else torch.cuda.current_device()
-    if index not in _SHARED_LIMIT:
-        limit = lib.otw_band_shared_optin(index)
-        if limit < 0:
+    if (index, c) not in _WORKSPACE_FLOATS:
+        floats = lib.otw_band_workspace_floats(c, index)
+        if floats < 0:
             raise RuntimeError(f"cannot read the shared-memory limit of cuda:{index}")
-        _SHARED_LIMIT[index] = limit
-    if window_route(c, _SHARED_LIMIT[index]) == "shared":
+        _WORKSPACE_FLOATS[index, c] = floats
+    floats = _WORKSPACE_FLOATS[index, c]
+    if floats == 0:
         return None
-    return torch.empty((blocks, c + 1, c + 1), dtype=torch.float32, device=device)
+    return torch.empty((blocks, floats), dtype=torch.float32, device=device)
 
 
 @dataclasses.dataclass

@@ -18,7 +18,7 @@ pairs of a batch run side by side, each leaving on its own ``done``.
 Device memory holds the padded feature rows (read by the band cells) and
 receives the path points and scalars.  A band whose window does not fit
 in shared memory takes a global-memory workspace of one window per pair
-(``otw_insert.window_route``), in the same kernel.
+(``otw_insert.window_workspace``), in the same kernel.
 
 Layout (:func:`pack`): ``ref_rows`` (R, c + n_max, F) with c leading zero
 rows (row c+j ↔ reference frame j), R = 1 when every pair shares one

@@ -50,7 +50,7 @@ def test_chip_smoke_fails_without_a_card(tmp_path, alone):
 
 def test_no_source_line_imports_jax_or_the_jax_package():
     pattern = re.compile(r"^\s*(import|from)\s+(jax\b|real_time_audio_sync_tpu\b(?!_torch))", re.M)
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "chip_ab.py"]
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     offenders = [str(p.relative_to(ROOT)) for p in files if pattern.search(p.read_text())]
     assert not offenders, offenders
 

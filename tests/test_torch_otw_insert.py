@@ -242,32 +242,40 @@ def test_delta_mode_matches_jax_long_kernel_launch_by_launch(variant, c, mrc, k_
 
 
 def test_wide_band_route_is_chosen_above_the_shared_memory_limit():
-    """The (c+1)² window and the scratch of one block need
-    4·((c+1)² + 4·nt + 4·32) bytes; above the card's opt-in limit (232,448 B
-    on an H100) the window goes to global memory: c = 237 fits, c = 238
-    does not."""
+    """The band library decides where the (c+1)² window lives
+    (``otw_band_workspace_floats``: 0 while the window and the scratch,
+    4·((c+1)² + 4·nt + 4·32) bytes, fit the card's opt-in limit, else
+    (c+1)²); the wrapper allocates exactly that, one window per block, asks
+    once per device and band, and raises when the limit cannot be read.
+    The library here answers as on an H100 (232,448 B): c = 237 fits,
+    c = 238 does not; phase 9 of chip_smoke.py checks the real library."""
     h100 = 232448
-    assert otw_insert.shared_bytes(237) == 4 * (238 * 238 + 4 * 256 + 128) <= h100
-    assert otw_insert.shared_bytes(238) == 233092 > h100
-    assert otw_insert.shared_bytes(238, window_in_shared=False) == 4 * (4 * 256 + 128)
-    assert [otw_insert.window_route(c, h100) for c in (10, 50, 200, 237, 238, 400)] == \
-        ["shared"] * 4 + ["global"] * 2
-    # the route follows the limit the device reports, not a constant
-    assert otw_insert.window_route(50, 48 * 1024) == "shared"
-    assert otw_insert.window_route(150, 48 * 1024) == "global"
-    assert otw_insert.window_route(237, 10**6) == "shared"
-    # read through the kernel library, once per device; only a wide band allocates a workspace
+
     class Lib:
-        calls = 0
+        calls = []
 
-        def otw_band_shared_optin(self, index):
-            Lib.calls += 1
-            return h100
+        def otw_band_workspace_floats(self, c, index):
+            Lib.calls.append((c, index))
+            nt = -(-(c + 1) // 32) * 32
+            return 0 if 4 * ((c + 1) ** 2 + 4 * nt + 4 * 32) <= h100 else (c + 1) ** 2
 
-    otw_insert._SHARED_LIMIT.pop(0, None)
+    class Broken:
+        def otw_band_workspace_floats(self, c, index):
+            return -1
+
+    dev = torch.device("cpu", 0)
+    saved = dict(otw_insert._WORKSPACE_FLOATS)
+    otw_insert._WORKSPACE_FLOATS.clear()
     try:
-        assert otw_insert.window_workspace(Lib(), 237, 3, torch.device("cuda", 0)) is None
-        assert otw_insert.window_workspace(Lib(), 100, 3, torch.device("cuda", 0)) is None
-        assert Lib.calls == 1
+        for c in (10, 50, 200, 237):
+            assert otw_insert.window_workspace(Lib(), c, 3, dev) is None
+        for c in (238, 400):
+            work = otw_insert.window_workspace(Lib(), c, 3, dev)
+            assert work.shape == (3, (c + 1) ** 2) and work.dtype == torch.float32
+        assert otw_insert.window_workspace(Lib(), 238, 5, dev).shape == (5, 239 * 239)
+        assert Lib.calls == [(c, 0) for c in (10, 50, 200, 237, 238, 400)]
+        with pytest.raises(RuntimeError, match="shared-memory limit"):
+            otw_insert.window_workspace(Broken(), 60, 1, dev)
     finally:
-        otw_insert._SHARED_LIMIT.pop(0, None)
+        otw_insert._WORKSPACE_FLOATS.clear()
+        otw_insert._WORKSPACE_FLOATS.update(saved)
