@@ -7,7 +7,8 @@ Phases, each raising on failure (the process then exits non-zero):
 1. device — the card's name, then ``nvidia-smi``'s name and power limit;
 2. build — ``nvcc`` builds every kernel of the port from ``csrc/``;
 3. kernel against plain, on the card — the K-insert kernel and its plain
-   PyTorch version run the same streams launch by launch (4 engine
+   PyTorch version (on host copies, as in every comparison of phases 3 and
+   7-10 but phase 10 (d)'s) run the same streams launch by launch (4 engine
    variants × bands c ∈ {10, 50, 200} × k_block ∈ {1, 8, 32}, with a stop
    past the end of the reference, and a live-capacity freeze at k_block
    32); status, scalars, path, window and live history must be EQUAL (the
@@ -41,8 +42,8 @@ Phases, each raising on failure (the process then exits non-zero):
    on _01/_00, which forces the banded route, in float32 and float64;
    then each kernel's time at (2,874, 3,118): profiler device time per
    launch, CUDA events back to back, the plain version, and the bound.
-7. set_live kernel against plain, on the card — the whole-pair kernel and
-   its plain version on the same card-resident pairs: 4 engine variants ×
+7. set_live kernel against plain, on the card — the whole-pair kernel on
+   card-resident pairs and its plain version on host copies of them: 4 engine variants ×
    bands c ∈ {10, 50, 200} × {live runs out, stop past the reference's end
    with live ≈ 2.6× the reference, the 2N live-capacity halt}; a ragged
    batch of 4 == each pair alone == plain; a shared reference × 3.  Path,
@@ -74,13 +75,38 @@ Phases, each raising on failure (the process then exits non-zero):
    2048-sample buffers for "otw" and "livenote_v2": the engine must choose
    the long-reference layout by itself, its path must equal a
    ``long_ref=False`` engine's on the same columns, point for point, and
-   the plain version's in the long layout (a CPU engine); prints
+   begin with the plain version's in the long layout (a CPU engine) over
+   the first 6,000 hops; prints
    the real-time factor, the launches read from the counters, the pending
    delta entries a path read drains (one device-to-host copy each) and their
    bytes, and the device bytes per stream in each layout;
    (c) the delta mode's time at k_block 8 on that reference (profiler, CUDA
    events, plain, and the bound of this run's launches), the kernel's and
    the plain version's delta rows and states EQUAL after those launches.
+10. multi-stream serving: the K-insert kernel over a grid of B streams
+   (kernels #5 and #6) —
+   (a) the batched kernel against the batched plain version, launch by
+   launch, over 4 variants × c ∈ {10, 50, 200, 238} × k_block ∈ {1, 8} ×
+   both modes, each a ragged batch of 3 references of different lengths
+   with per-stream counts 0..k_block; a ragged B = 5 in which one stream
+   stops past its reference's end and one reaches the live-capacity freeze;
+   a shared reference × 3.  Every stream's window, live rows, scalars,
+   status, path buffers or delta rows EQUAL the plain version's and the
+   solo kernel's on that stream alone;
+   (b) ``FusedMultiStreamFollower`` with B = 256 streams on the shared
+   ``sonata_allegro`` ``_00`` reference, even streams on ``_01`` and odd on
+   ``_02`` (chroma on the card), stream i joining at hop i, in both layouts:
+   the layouts' paths equal, the even streams' paths all equal and the odd
+   streams' all equal, streams 0, 1, 254, 255 equal to a solo card engine,
+   stream 0 to the plain version; the wall, per-stream and aggregate RTF,
+   dispatches, launches read from the counters, device bytes per stream,
+   the final drain, and a traced slice;
+   (c) the same at B = 256 on the concert reference (24,456 frames), the
+   windowed layout, the first 4,000 hops: streams 0 and 255 equal to a solo
+   long-layout engine;
+   (d) both modes' times at B ∈ {1, 4, 256, 1024} (profiler, CUDA events,
+   bound), the plain version at B = 4 from the same state, whose rows and
+   states must equal the kernel's.
 
 The builds run in parallel (one ``nvcc`` per source).  Then one JSON line
 of per-kernel results, and last ``{"ok": true, "device": {...}}``.
@@ -115,6 +141,11 @@ KERNELS = {
     # kernel #4 is the delta mode of kernel #1's CUDA kernel
     "otw_insert_block_long": ("otw_insert", f"{CSRC}/otw_insert.cu",
                               "real_time_audio_sync_tpu/ops/pallas_otw.py:959"),
+    # kernels #5 and #6 are that kernel over a grid of B streams, in each mode
+    "otw_multi_insert_block_long": ("otw_insert", f"{CSRC}/otw_insert.cu",
+                                    "real_time_audio_sync_tpu/ops/pallas_otw.py:1002"),
+    "otw_multi_insert_block": ("otw_insert", f"{CSRC}/otw_insert.cu",
+                               "real_time_audio_sync_tpu/ops/pallas_otw.py:1080"),
 }
 # the card's published peaks (H100 SXM data sheet, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
@@ -132,6 +163,21 @@ WIDE_BANDS = (237, 238, 400)
 # buffers of the concert follower traced by the profiler (a slice: a trace of
 # every hop holds ~10^6 events)
 TRACE_BUFFERS = 3000
+# phase 10: the batched kernel's comparison bands (238: the global window),
+# the streams served (bench.py:924-997 sizes serving at 256 to 1,024), the
+# hops of the concert run (a cut that bounds the phase's time), the hops of
+# its traced slice, the batches timed, and the plain version's batch and
+# launches
+MULTI_BANDS = (10, 50, 200, 238)
+# hops of the concert that phase 9 (b) runs through the plain version on the
+# CPU (a cut that bounds the script's time; the card runs all of them)
+PLAIN_CONCERT_HOPS = 6000
+SERVING_STREAMS = 256
+CONCERT_HOPS = 4000
+TRACE_HOPS = 600
+MULTI_TIMING_BATCHES = (1, 4, 256, 1024)
+MULTI_PLAIN_BATCH = 4
+PLAIN_REPS = 4
 
 
 def log(msg: str) -> None:
@@ -168,29 +214,33 @@ def stream(rng, variant: str, n: int, scenario: str):
     return ref, live
 
 
-def clone_state(state):
+def clone_state(state, device=None):
+    """A copy of an engine state, on ``device`` (default: where it is)."""
     import dataclasses
 
-    return dataclasses.replace(state, **{f.name: getattr(state, f.name).clone()
+    return dataclasses.replace(state, **{f.name: getattr(state, f.name).to(device, copy=True)
                                          for f in dataclasses.fields(state)
                                          if getattr(state, f.name) is not None})
 
 
 def compare_states(a, b, what: str) -> float:
-    """Raise unless the two states are equal; returns the window's largest
-    absolute difference over finite cells (0.0 when equal)."""
+    """Raise unless the two states (on any devices) are equal; returns the
+    window's largest absolute difference over finite cells (0.0 when
+    equal)."""
     import torch
 
     for name in ("status", "scalars", "path_x", "path_y", "live", "window"):
         x, y = getattr(a, name), getattr(b, name)
         if x is None and y is None:  # delta mode: no whole-path buffers
             continue
+        x, y = x.cpu(), y.cpu()
         if not torch.equal(x, y):
             diff = (x.double() - y.double()).abs()
             raise AssertionError(f"{what}: kernel and plain disagree on {name} "
                                  f"(max |diff| {diff[torch.isfinite(diff)].max().item() if torch.isfinite(diff).any() else 'inf'})")
-    fin = torch.isfinite(a.window) & torch.isfinite(b.window)
-    return float((a.window[fin] - b.window[fin]).abs().max()) if fin.any() else 0.0
+    wa, wb = a.window.cpu(), b.window.cpu()
+    fin = torch.isfinite(wa) & torch.isfinite(wb)
+    return float((wa[fin] - wb[fin]).abs().max()) if fin.any() else 0.0
 
 
 def phase_kernel_vs_plain(device) -> float:
@@ -218,13 +268,13 @@ def phase_kernel_vs_plain(device) -> float:
                     n = ref.shape[1]
                     cap = 2 * n
                     kern = otw_insert.new_state(torch.from_numpy(ref).to(device), cfg, cap)
-                    plain = clone_state(kern)
+                    plain = clone_state(kern, "cpu")
                     rows = torch.from_numpy(np.ascontiguousarray(live.T)).to(device)
                     for s in range(0, rows.shape[0], k_block):
                         block = rows[s : s + k_block]
                         lens = (cap, n, block.shape[0])
                         otw_insert.insert_block(kern, block, lens, cfg, k_block)
-                        otw_insert.insert_block_reference(plain, block, lens, cfg, k_block)
+                        otw_insert.insert_block_reference(plain, block.cpu(), lens, cfg, k_block)
                         torch.cuda.synchronize()
                         worst = max(worst, compare_states(kern, plain, f"{variant} c={c} k={k_block} {scenario} @col {s}"))
                         n_launches += 1
@@ -289,13 +339,18 @@ def kernel_device_ms(launch, reps: int, kernel: str):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for r in range(reps):
-            launch(r)
-        torch.cuda.synchronize()
-    hits = [e for e in prof.key_averages()
-            if kernel in e.key and e.self_device_time_total > 0]
-    traced = sum(e.count for e in hits)
+    # the profiler sometimes keeps few of a trace's device events:
+    # trace again (up to three times) until it holds at least half of them
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for r in range(reps):
+                launch(r)
+            torch.cuda.synchronize()
+        hits = [e for e in prof.key_averages()
+                if kernel in e.key and e.self_device_time_total > 0]
+        traced = sum(e.count for e in hits)
+        if 2 * traced >= reps:
+            break
     if traced == 0:
         return None, 0
     return sum(e.self_device_time_total for e in hits) / 1e3 / traced, traced
@@ -635,20 +690,19 @@ def set_live_cfg(variant: str, c: int, mrc: int = 3):
 
 
 def compare_set_live(refs, lives, cfg, what: str):
-    """The kernel and the plain version on one packed batch of card-resident
-    pairs: raises unless path, plen, t, j and stopped are equal; returns
-    (the kernel's out rows, the plain version's seconds, the largest
-    absolute difference, 0 when equal)."""
+    """The kernel on one packed batch of card-resident pairs and the plain
+    version on host copies of them: raises unless path, plen, t, j and
+    stopped are equal; returns (the kernel's out rows, the plain version's
+    seconds, the largest absolute difference, 0 when equal)."""
     import torch
 
     from real_time_audio_sync_tpu_torch.ops import otw_set_live
 
     packed = otw_set_live.pack(refs, lives, cfg.c)
-    kern = otw_set_live.batched_set_live(*packed, cfg)
-    torch.cuda.synchronize()
+    kern = [x.cpu() for x in otw_set_live.batched_set_live(*packed, cfg)]
+    packed = [x.cpu() for x in packed]
     t0 = time.perf_counter()
     plain = otw_set_live.batched_set_live_reference(*packed, cfg)
-    torch.cuda.synchronize()
     plain_s = time.perf_counter() - t0
     for name, x, y in zip(("path_x", "path_y", "out"), kern, plain):
         if not torch.equal(x, y):
@@ -874,8 +928,7 @@ def delta_row(cfg, k_block: int, device):
 
     from real_time_audio_sync_tpu_torch.ops import otw_insert
 
-    return torch.empty(otw_insert.N_STATUS + 2 * otw_insert.delta_slots(cfg, k_block), dtype=torch.int32,
-                       device=device)
+    return torch.empty(otw_insert.delta_width(cfg, k_block), dtype=torch.int32, device=device)
 
 
 def run_delta_stream(ref, live, cfg, k_block: int, device, what: str) -> float:
@@ -894,7 +947,7 @@ def run_delta_stream(ref, live, cfg, k_block: int, device, what: str) -> float:
     cap = 2 * n
     ref_t = torch.from_numpy(ref).to(device)
     kern = otw_insert.new_state(ref_t, cfg, cap, whole_path=False)
-    plain = clone_state(kern)
+    plain = clone_state(kern, "cpu")
     whole = otw_insert.new_state(ref_t, cfg, cap)
     rows = torch.from_numpy(np.ascontiguousarray(live.T)).to(device)
     points, worst = [], 0.0
@@ -902,14 +955,14 @@ def run_delta_stream(ref, live, cfg, k_block: int, device, what: str) -> float:
         block = rows[s : s + k_block]
         lens = (cap, n, block.shape[0])
         plen0 = int(plain.scalars[otw_insert.S_PLEN])
-        row_k, row_p = delta_row(cfg, k_block, device), delta_row(cfg, k_block, device)
+        row_k, row_p = delta_row(cfg, k_block, device), delta_row(cfg, k_block, "cpu")
         otw_insert.insert_block(kern, block, lens, cfg, k_block, delta=row_k)
-        otw_insert.insert_block_reference(plain, block, lens, cfg, k_block, delta=row_p)
+        otw_insert.insert_block_reference(plain, block.cpu(), lens, cfg, k_block, delta=row_p)
         otw_insert.insert_block(whole, block, lens, cfg, k_block)
         torch.cuda.synchronize()
-        if not torch.equal(row_k, row_p):
+        if not torch.equal(row_k.cpu(), row_p):
             raise AssertionError(f"{what} @col {s}: kernel and plain disagree on the delta row "
-                                 f"(max |diff| {max_abs_diff(row_k, row_p)})")
+                                 f"(max |diff| {max_abs_diff(row_k.cpu(), row_p)})")
         worst = max(worst, compare_states(kern, plain, f"{what} @col {s}"))
         if not torch.equal(row_k[: otw_insert.N_STATUS], whole.status):
             raise AssertionError(f"{what} @col {s}: delta and whole-path status differ")
@@ -1091,7 +1144,8 @@ def insert_bound(c: int, f: int, euclidean: bool, k: int, d_pad: int, launches: 
 def phase_concert(device, root: str):
     """Phase 9 (b) and (c); returns (launches read, max |diff| against the
     plain version, device ms, event ms, plain ms, bound ms, bound by) for
-    kernel #4's row."""
+    kernel #4's row, the concert's (reference, live) wavs and the live
+    chroma columns on the card."""
     import numpy as np
     import torch
 
@@ -1144,13 +1198,16 @@ def phase_concert(device, root: str):
         std.flush()
         if not np.array_equal(std.path_array, path):
             raise AssertionError(f"{engine}: the long-reference path differs from the standard layout's")
-        # the same columns through the plain version in the long layout (CPU engine)
+        # the first PLAIN_CONCERT_HOPS columns through the plain version in
+        # the long layout (CPU engine): its path is the card path's prefix
+        # (points are only ever appended); the cut bounds the phase's time
         t1 = time.perf_counter()
         plain = FusedStreamingEngine(eng._state.ref[PARAMS["c"]:].T.cpu(), PARAMS, ENGINE_OVERRIDES[engine],
                                      k_block=32, device="cpu", long_ref=True)
-        plain.insert_block_nowait(cols.cpu())
+        plain.insert_block_nowait(cols[:, :PLAIN_CONCERT_HOPS].cpu())
         plain.flush()
-        if not np.array_equal(plain.path_array, path):
+        plain_path = plain.path_array
+        if len(plain_path) == 0 or not np.array_equal(plain_path, path[: len(plain_path)]):
             raise AssertionError(f"{engine}: the kernel's long-reference path differs from the plain version's")
         plain_s = time.perf_counter() - t1
         score = scorer.score(follower.path)
@@ -1158,7 +1215,8 @@ def phase_concert(device, root: str):
         log(f"phase 9 [concert {engine}]: {cols.shape[1]} hops vs {eng.n} ref frames, long_ref chosen by the engine; "
             f"{delta} delta launches read from the counter (mean {np.mean(eng.dispatched_block_sizes):.2f} "
             f"frames/launch), 0 whole-path; path {len(path)} points == standard layout (k_block 32) == plain "
-            f"version in the long layout (CPU, {plain_s:.1f} s), last point "
+            f"version in the long layout over the first {PLAIN_CONCERT_HOPS} hops ({len(plain_path)} points; CPU, "
+            f"{plain_s:.1f} s), last point "
             f"{tuple(int(v) for v in path[-1])}; stopped={follower.stopped}")
         log(f"phase 9 [concert {engine}]: wall {wall:.3f} s, real-time factor {audio_s / wall:.1f}; the path read "
             f"drained {entries} pending entries (one device-to-host copy each, {pending} B in all, "
@@ -1194,7 +1252,7 @@ def phase_concert(device, root: str):
     cfg = eng.cfg
     rows = cols.T.contiguous()
     base = otw_insert.new_state(eng._state.ref[PARAMS["c"]:].T.contiguous(), cfg, eng.cap, whole_path=False)
-    width = otw_insert.N_STATUS + 2 * otw_insert.delta_slots(cfg, k)
+    width = otw_insert.delta_width(cfg, k)
     lens = (eng.cap, eng.n, k)
 
     def timed(fn, state, out):
@@ -1234,7 +1292,427 @@ def phase_concert(device, root: str):
         f"j +{dj}, {points} points); kernel == plain over these {reps + 2} launches (delta rows, window, live "
         f"history, scalars), window max |diff| {err}")
     log(f"phase 9: {time.perf_counter() - t0:.1f} s for (b) and (c)")
-    return launches_read, err, dev_ms, event_ms, plain_ms, bound_ms, bound_by
+    return (launches_read, err, dev_ms, event_ms, plain_ms, bound_ms, bound_by), (ref_wav, live_wav), cols
+
+
+# ---------------------------------------------------------------------------
+# Phase 10: multi-stream serving (kernels #5 and #6, the K-insert kernel's grid)
+# ---------------------------------------------------------------------------
+
+
+def multi_ks(launch: int, ptr, lens, k_block: int):
+    """Each stream's insert count in a launch: a cycle through 0 … k_block
+    (0 every fifth launch of a stream, so the batch is always ragged),
+    never past the stream's live columns."""
+    import numpy as np
+
+    return np.asarray([0 if (launch + i) % 5 == 4 else min(1 + (launch + i) % k_block, n - p)
+                       for i, (p, n) in enumerate(zip(ptr, lens))], np.int32)
+
+
+def run_multi_batch(refs, lives, cfg, k_block: int, whole_path: bool, device, what: str, shared: bool = False):
+    """B streams through the batched kernel and the batched plain version
+    (on host copies of the same inputs), launch by launch with ragged
+    per-stream counts (0 included), beside the solo kernel (#1 or #4) on
+    each stream alone: the batch's window, live rows,
+    scalars, status, path buffers or delta rows EQUAL the plain version's,
+    and each stream's equal the solo kernel's.  Returns (launches, final
+    scalars (B, 16))."""
+    import numpy as np
+    import torch
+
+    from real_time_audio_sync_tpu_torch.ops import otw_insert
+
+    b, c = len(refs), cfg.c
+    ref_d = [torch.from_numpy(r).to(device) for r in refs]
+    kern = otw_insert.new_multi_state([ref_d[0]] * b if shared else ref_d, cfg, whole_path)
+    plain = clone_state(kern, "cpu")
+    solos = [otw_insert.new_state(r, cfg, 2 * r.shape[1], whole_path) for r in ref_d]
+    width = otw_insert.delta_width(cfg, k_block)
+    lens = [l.shape[1] for l in lives]
+    ptr, launch = [0] * b, 0
+    while any(p < n for p, n in zip(ptr, lens)):
+        ks = multi_ks(launch, ptr, lens, k_block)
+        cols = np.zeros((b, k_block, refs[0].shape[0]), np.float32)
+        for i, (p, l) in enumerate(zip(ptr, lives)):
+            cols[i, : ks[i]] = l[:, p : p + ks[i]].T
+        cols_d, ks_d = torch.from_numpy(cols).to(device), torch.from_numpy(ks).to(device)
+        rows_k = None if whole_path else torch.full((b, width), -7, dtype=torch.int32, device=device)
+        rows_p = None if whole_path else torch.full((b, width), -5, dtype=torch.int32)
+        otw_insert.multi_insert_block(kern, cols_d, ks_d, cfg, k_block, rows_k)
+        otw_insert.multi_insert_block_reference(plain, torch.from_numpy(cols), torch.from_numpy(ks), cfg, k_block,
+                                                rows_p)
+        solo_rows = []
+        for i, st in enumerate(solos):
+            n = refs[i].shape[1]
+            solo_rows.append(None if whole_path else torch.full((width,), -3, dtype=torch.int32, device=device))
+            otw_insert.insert_block(st, cols_d[i, : ks[i]], (2 * n, n, int(ks[i])), cfg, k_block, solo_rows[i])
+        torch.cuda.synchronize()
+        at = f"{what} @launch {launch}"
+        for name in ("window", "live", "scalars", "status", "path_x", "path_y"):
+            x, y = getattr(kern, name), getattr(plain, name)
+            if x is not None and not torch.equal(x.cpu(), y):
+                raise AssertionError(f"{at}: batched kernel and plain disagree on {name} "
+                                     f"(max |diff| {max_abs_diff(x.cpu(), y)})")
+        if rows_k is not None and not torch.equal(rows_k.cpu(), rows_p):
+            raise AssertionError(f"{at}: batched kernel and plain disagree on the delta rows")
+        for i, st in enumerate(solos):
+            view, rows = kern.stream(i), 2 * refs[i].shape[1] + c
+            same = (torch.equal(view.window, st.window) and torch.equal(view.scalars, st.scalars)
+                    and torch.equal(view.live[:rows], st.live))
+            if whole_path:
+                p_len = st.path_x.shape[0]
+                same = same and torch.equal(view.status, st.status) and torch.equal(view.path_x[:p_len], st.path_x) \
+                    and torch.equal(view.path_y[:p_len], st.path_y)
+            else:
+                same = same and torch.equal(rows_k[i], solo_rows[i])
+            if not same:
+                raise AssertionError(f"{at}: stream {i} of the batch differs from the solo kernel on it alone")
+        ptr = [p + int(k) for p, k in zip(ptr, ks)]
+        launch += 1
+    return launch, kern.scalars.cpu()
+
+
+def phase_multi_vs_plain(device) -> None:
+    """Phase 10 (a)."""
+    import numpy as np
+
+    from real_time_audio_sync_tpu_torch.ops import otw_insert
+
+    t0 = time.perf_counter()
+    launches, cells = 0, 0
+    for vi, variant in enumerate(VARIANTS):
+        for c in MULTI_BANDS:
+            for k_block in (1, 8):
+                for whole_path in (True, False):
+                    rng = np.random.default_rng(10000 + 1000 * vi + 10 * c + k_block)
+                    cfg = set_live_cfg(variant, c)
+                    # three references of different lengths; stream 1's live
+                    # runs out early, streams 0 and 2 run past their ends
+                    pairs = [stream(rng, variant, c + 20 + 10 * i, "stop") for i in range(3)]
+                    refs = [r for r, _ in pairs]
+                    lives = [l for _, l in pairs]
+                    lives[1] = lives[1][:, : lives[1].shape[1] * 3 // 5]
+                    n, sc = run_multi_batch(refs, lives, cfg, k_block, whole_path, device,
+                                            f"phase 10 [{variant} c={c} k={k_block} {'whole' if whole_path else 'delta'}]")
+                    if sc[0, otw_insert.S_STOPPED] != 1 or sc[2, otw_insert.S_STOPPED] != 1:
+                        raise AssertionError(f"phase 10 [{variant} c={c}]: streams 0 and 2 did not stop")
+                    launches += n
+                    cells += 1
+    log(f"phase 10: batched K-insert kernel == plain == the solo kernel stream by stream on the card over "
+        f"{len(VARIANTS)} variants x bands {MULTI_BANDS} x k_block (1, 8) x both modes ({cells} ragged batches of "
+        f"3 references of different lengths, per-stream counts 0..k_block): {launches} launches, "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    t1 = time.perf_counter()
+    c = PARAMS["c"]
+    for vi, variant in enumerate(("otw", "livenote_v2_diff")):
+        for whole_path in (True, False):
+            rng = np.random.default_rng(10500 + 10 * vi + whole_path)
+            cfg = set_live_cfg(variant, c, 5)  # max_run_count 5 lets the stuck stream reach the freeze
+            pairs = [stream(rng, variant, c + 15 + 20 * i, "stop") for i in range(5)]
+            pairs[3] = stream(rng, variant, 3 * c + 30, "capacity")
+            refs, lives = [r for r, _ in pairs], [l for _, l in pairs]
+            lives[4] = lives[4][:, : lives[4].shape[1] // 2]  # runs out
+            mode = "whole" if whole_path else "delta"
+            _, sc = run_multi_batch(refs, lives, cfg, 8, whole_path, device, f"phase 10 [{variant} B=5 {mode}]")
+            n3 = refs[3].shape[1]
+            if sc[1, otw_insert.S_STOPPED] != 1 or not (sc[3, otw_insert.S_T] >= 2 * n3 and sc[3, otw_insert.S_STOPPED] == 0):
+                raise AssertionError(f"phase 10 [{variant} B=5 {mode}]: stop or freeze not reached ({sc.tolist()})")
+    for vi, variant in enumerate(VARIANTS):
+        for whole_path in (True, False):
+            rng = np.random.default_rng(10700 + 10 * vi + whole_path)
+            ref, live = stream(rng, variant, c + 30, "stop")
+            # the whole rendition, its first half, and the rendition from its fourth frame
+            lives = [live, live[:, : live.shape[1] // 2], live[:, 3:]]
+            run_multi_batch([ref] * 3, lives, set_live_cfg(variant, c), 8, whole_path, device,
+                            f"phase 10 [{variant} shared x 3 {'whole' if whole_path else 'delta'}]", shared=True)
+    log(f"phase 10: ragged B = 5 (one stream stops past its reference's end, one reaches the live-capacity freeze, "
+        f"one runs out; otw, livenote_v2_diff) and a shared reference x 3 (4 variants), both modes: batched kernel "
+        f"== plain == solo kernel, {time.perf_counter() - t1:.1f} s")
+
+
+def multi_device_bytes(fms) -> int:
+    """Device bytes of a follower's state per stream (the shared reference
+    divided among the streams; pending delta rows counted apart)."""
+    import dataclasses
+
+    st = fms._state
+    total = sum(x.numel() * x.element_size() for x in (getattr(st, f.name) for f in dataclasses.fields(st))
+                if x is not None)
+    return total // fms.b
+
+
+def pending_delta_bytes(fms) -> int:
+    return sum(x.numel() * x.element_size() for e in fms._deltas for x in (e if isinstance(e, tuple) else (e,)))
+
+
+def serve(fms, lives, lens, perf, hops: int) -> None:
+    """Feed ``fms`` for ``hops`` hops: stream i follows performance
+    ``perf[i]`` (a row of the host array ``lives`` (P, T, F), ``lens[p]``
+    columns long), joins at hop i through the ``active`` mask, and feeds
+    one column a hop until its performance ends."""
+    import numpy as np
+
+    starts = np.arange(len(perf))
+    for h in range(hops):
+        pos = h - starts
+        act = (pos >= 0) & (pos < lens[perf])
+        fms.feed(lives[perf, np.clip(pos, 0, lives.shape[1] - 1)], act)
+    fms.flush()
+
+
+def serving_run(ref, lives, lens, perf, long_ref: bool, hops: int, device, label: str):
+    """One main-path run of ``FusedMultiStreamFollower`` (B = len(perf),
+    shared reference, stream i joins at hop i), with every launch counter
+    set to 0 just before and read just after.  Returns (follower, paths,
+    figures)."""
+    import numpy as np
+    import torch
+
+    from real_time_audio_sync_tpu_torch.config import FRAME_PERIOD_SEC
+    from real_time_audio_sync_tpu_torch.ops import otw_insert
+    from real_time_audio_sync_tpu_torch.parallel import FusedMultiStreamFollower
+
+    b = len(perf)
+    fms = FusedMultiStreamFollower(ref, PARAMS, n_streams=b, k_block=8, long_ref=long_ref, device=device)
+    starts = np.arange(b)
+    torch.cuda.synchronize()
+    otw_insert.launches = otw_insert.delta_launches = 0
+    otw_insert.multi_launches = otw_insert.multi_delta_launches = 0
+    t0 = time.perf_counter()
+    serve(fms, lives, lens, perf, hops)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = (otw_insert.launches, otw_insert.delta_launches, otw_insert.multi_launches,
+              otw_insert.multi_delta_launches)
+    want = (0, 0, 0, len(fms.dispatched_block_sizes)) if long_ref else (0, 0, len(fms.dispatched_block_sizes), 0)
+    if counts != want or not fms.dispatched_block_sizes:
+        raise AssertionError(f"{label}: launches (solo, solo delta, batched, batched delta) {counts}, want {want}")
+    pending = pending_delta_bytes(fms) if long_ref else 0
+    entries = len(fms._deltas) if long_ref else 0
+    t1 = time.perf_counter()
+    paths = fms.paths()
+    drain_s = time.perf_counter() - t1
+    frames = np.clip(hops - starts, 0, lens[perf]).astype(np.int64)
+    sizes = np.asarray(fms.dispatched_block_sizes)
+    audio = frames * FRAME_PERIOD_SEC
+    log(f"{label}: B = {b}, {hops} hops, {int(frames.sum())} frames in all; wall {wall:.3f} s; RTF per stream "
+        f"{np.mean(audio) / wall:.2f} (mean; min {audio.min() / wall:.2f}), aggregate {audio.sum() / wall:.1f}; "
+        f"{wall * 1e6 / frames.sum():.3f} us per frame per stream; {len(sizes)} dispatches, block sizes "
+        f"{dict(zip(*[a.tolist() for a in np.unique(sizes, return_counts=True)]))}; launches read from the "
+        f"counters: {counts[3] if long_ref else counts[2]} ({'delta' if long_ref else 'whole-path'} grid), "
+        f"0 solo; stopped {int(fms.stopped.sum())} of {b}")
+    log(f"{label}: device bytes per stream {multi_device_bytes(fms)} (shared reference "
+        f"{fms._state.ref.numel() * 4} B once); final paths() drained {entries} pending entries, {pending} B "
+        f"({pending / b:.0f} B per stream), in {drain_s:.3f} s")
+    return fms, paths, counts[3] if long_ref else counts[2]
+
+
+def equal_paths(a, b) -> bool:
+    import numpy as np
+
+    return len(a) == len(b) and all(x.shape == y.shape and np.array_equal(x, y) for x, y in zip(a, b))
+
+
+def solo_path(ref, cols, device, long_ref=None):
+    from real_time_audio_sync_tpu_torch.models.fused_streaming import FusedStreamingEngine
+
+    eng = FusedStreamingEngine(ref, PARAMS, k_block=32, long_ref=long_ref, device=device)
+    eng.insert_block_nowait(cols)
+    eng.flush()
+    return eng.path_array, eng.long_ref
+
+
+def multi_bound(c: int, f: int, euclidean: bool, k: int, d_pad: int, launches: int, dt: int, dj: int, points: int,
+                b: int, delta: bool):
+    """(bound ms, "bytes" or "operations", bytes, ops) of one batched launch
+    of B identical streams, averaged over ``launches`` launches that
+    advanced each stream's t by ``dt``, j by ``dj`` and committed ``points``
+    points: per stream the window read and written, the k columns read and
+    their live rows written, the c+1+k live rows the band reads, the
+    scalars read and written, and the delta row (delta mode) or the status
+    and points (whole path) written; the shared reference's c+1+dj/launches
+    rows once; operations as :func:`insert_bound`, B times."""
+    import math
+
+    stages = math.ceil(math.log2(c + 1))
+    per_cell = (3 * f + 1 if euclidean else 2 * f + 1) + 5 + 3 * stages
+    out = (8 + 2 * d_pad) * 4 if delta else 8 * 4 + points * 8 / launches
+    stream_bytes = 2 * (c + 1) ** 2 * 4 + 2 * k * f * 4 + (c + 1 + k) * f * 4 + 2 * 16 * 4 + out
+    bytes_ = b * stream_bytes + (c + 1 + dj / launches) * f * 4
+    ops = b * ((dt + dj) * (c + 1) * per_cell + points * 2 * (c + 1)) / launches
+    t_bytes, t_ops = bytes_ / HBM_BYTES_PER_S * 1e3, ops / FP32_FLOPS * 1e3
+    return (t_bytes, "bytes", bytes_, ops) if t_bytes >= t_ops else (t_ops, "operations", bytes_, ops)
+
+
+def phase_multi_rows(device, ref, live):
+    """Phase 10 (d): both modes at B in MULTI_TIMING_BATCHES on the
+    sonata_allegro reference, k_block 8, c = 50, every stream on the same
+    columns: profiler device time and back-to-back CUDA-event time per
+    launch, the bound; at B = 4 also the plain version (on card tensors)
+    from the same state on the same columns, whose rows and states must
+    equal the kernel's.  Returns {mode: {B: (dev_ms, event_ms, bound_ms,
+    bound_by)}, "plain": {mode: ms}, "err": max |diff|}."""
+    import torch
+
+    from real_time_audio_sync_tpu_torch.models.online_core import ENGINE_OVERRIDES, OnlineConfig
+    from real_time_audio_sync_tpu_torch.ops import otw_insert
+
+    cfg = OnlineConfig(c=PARAMS["c"], max_run_count=PARAMS["max_run_count"], **ENGINE_OVERRIDES["otw"])
+    k, reps = 8, 64
+    rows = live.T.contiguous()
+    width = otw_insert.delta_width(cfg, k)
+    out = {"delta": {}, "whole": {}, "plain": {}, "err": 0.0}
+    for mode in ("delta", "whole"):
+        whole = mode == "whole"
+        for b in MULTI_TIMING_BATCHES:
+            base = otw_insert.new_multi_state([ref] * b, cfg, whole_path=whole)
+            cols = [rows[r * k : (r + 1) * k].expand(b, k, rows.shape[1]).contiguous() for r in range(reps + 2)]
+            ks = torch.full((b,), k, dtype=torch.int32, device=device)
+            delta = None if whole else torch.empty((reps + 2, b, width), dtype=torch.int32, device=device)
+
+            def launch(st, r):
+                otw_insert.multi_insert_block(st, cols[r], ks, cfg, k, None if delta is None else delta[r])
+
+            st = clone_state(base)
+            for r in range(2):
+                launch(st, r)
+            sc0 = st.scalars[0].tolist()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            for r in range(2, 2 + reps):
+                launch(st, r)
+            end.record()
+            torch.cuda.synchronize()
+            event_ms = start.elapsed_time(end) / reps
+            sc1 = st.scalars[0].tolist()
+            traced_st = clone_state(base)
+            dev_ms, traced = kernel_device_ms(lambda r: launch(traced_st, r), reps, "otw_insert_kernel")
+            dt, dj, points = (sc1[s] - sc0[s] for s in (otw_insert.S_T, otw_insert.S_J, otw_insert.S_PLEN))
+            bound_ms, bound_by, bytes_, ops = multi_bound(cfg.c, rows.shape[1], cfg.euclidean, k,
+                                                          otw_insert.delta_slots(cfg, k), reps, dt, dj, points, b,
+                                                          not whole)
+            out[mode][b] = (dev_ms, event_ms, bound_ms, bound_by)
+            extra = ""
+            if b == MULTI_PLAIN_BATCH:
+                # the plain version from the same state on the same columns
+                kern, plain = clone_state(base), clone_state(base)
+                plain_delta = None if whole else torch.empty_like(delta)
+                for r in range(2):
+                    launch(kern, r)
+                    otw_insert.multi_insert_block_reference(plain, cols[r], ks, cfg, k,
+                                                            None if whole else plain_delta[r])
+                t0 = time.perf_counter()
+                for r in range(2, 2 + PLAIN_REPS):
+                    otw_insert.multi_insert_block_reference(plain, cols[r], ks, cfg, k,
+                                                            None if whole else plain_delta[r])
+                torch.cuda.synchronize()
+                plain_ms = (time.perf_counter() - t0) * 1e3 / PLAIN_REPS
+                for r in range(2, 2 + PLAIN_REPS):
+                    launch(kern, r)
+                torch.cuda.synchronize()
+                if not whole and not torch.equal(delta[: 2 + PLAIN_REPS], plain_delta[: 2 + PLAIN_REPS]):
+                    raise AssertionError(f"phase 10 [{mode} B={b}]: kernel and plain disagree on the delta rows")
+                for name in ("window", "live", "scalars", "status", "path_x", "path_y"):
+                    x, y = getattr(kern, name), getattr(plain, name)
+                    if x is not None and not torch.equal(x, y):
+                        raise AssertionError(f"phase 10 [{mode} B={b}]: kernel and plain disagree on {name}")
+                out["err"] = max(out["err"], max_abs_diff(kern.window, plain.window))
+                out["plain"][mode] = plain_ms
+                extra = f"; plain {plain_ms:.3f} ms a launch (card tensors, {PLAIN_REPS} launches), equal to the kernel"
+            log(f"phase 10 [{'otw_multi_insert_block_long' if not whole else 'otw_multi_insert_block'}] B={b}, "
+                f"k_block {k}, c={cfg.c}, N={ref.shape[1]}: device time "
+                f"{'not measured' if dev_ms is None else f'{dev_ms:.4f} ms'} (profiler, {traced} of {reps} launches "
+                f"traced), {event_ms:.4f} ms back to back (CUDA events); bound {bound_ms:.7f} ms by {bound_by} "
+                f"({bytes_:.0f} B, {ops:.0f} ops a launch; t +{dt}, j +{dj}, {points} points a stream over {reps} "
+                f"launches){extra}")
+    return out
+
+
+def phase_serving(device, root: str, concert_wavs, concert_cols):
+    """Phase 10 (b)–(d); returns the two kernels' rows for the kernels line."""
+    import numpy as np
+    import torch
+
+    from real_time_audio_sync_tpu_torch.features.chroma import wav_to_chroma
+    from real_time_audio_sync_tpu_torch.utils.wavio import load_wav
+
+    t0 = time.perf_counter()
+    d = os.path.join(root, "sonata_allegro")
+    ref = wav_to_chroma(os.path.join(d, "sonata_allegro_00.wav"), np.float32, device=device)
+    cols = []
+    for take in ("01", "02"):
+        pcm, _ = load_wav(os.path.join(d, f"sonata_allegro_{take}.wav"))
+        cols.append(hop_columns([pcm[s : s + 2048] for s in range(0, len(pcm), 2048)], device))
+    lens = np.asarray([x.shape[1] for x in cols])
+    lives = np.zeros((2, lens.max(), 12), np.float32)
+    for i, x in enumerate(cols):
+        lives[i, : lens[i]] = x.T.cpu().numpy()
+    b = SERVING_STREAMS
+    perf = np.arange(b) % 2  # even streams follow _01, odd streams _02
+    hops = b - 1 + int(lens.max())
+    log(f"phase 10 (b): shared reference sonata_allegro_00 ({ref.shape[1]} frames), {b} streams, even on _01 "
+        f"({lens[0]} hops), odd on _02 ({lens[1]} hops), stream i joins at hop i; chroma on the card")
+    launches, runs = {}, {}
+    for long_ref in (True, False):
+        label = f"phase 10 (b) [{'windowed' if long_ref else 'whole buffer'}]"
+        fms, paths, n = serving_run(ref, lives, lens, perf, long_ref, hops, device, label)
+        launches["otw_multi_insert_block_long" if long_ref else "otw_multi_insert_block"] = n
+        runs[long_ref] = paths
+    paths = runs[True]
+    if not equal_paths(paths, runs[False]):
+        raise AssertionError("phase 10 (b): the two layouts' paths differ")
+    for p in (0, 1):
+        if not all(np.array_equal(paths[i], paths[p]) for i in range(p, b, 2)):
+            raise AssertionError(f"phase 10 (b): the {'even' if p == 0 else 'odd'} streams' paths differ (feed skew)")
+    for i in (0, 1, b - 2, b - 1):
+        want, _ = solo_path(ref, cols[perf[i]], device)
+        if not np.array_equal(paths[i], want):
+            raise AssertionError(f"phase 10 (b): stream {i} differs from a solo card engine on the same columns")
+    t1 = time.perf_counter()
+    plain, _ = solo_path(ref.cpu(), cols[0].cpu(), "cpu")
+    if not np.array_equal(paths[0], plain):
+        raise AssertionError("phase 10 (b): stream 0 differs from the plain version (CPU engine)")
+    log(f"phase 10 (b): both layouts' {b} paths equal; even streams' paths all equal ({len(paths[0])} points), odd "
+        f"streams' all equal ({len(paths[1])}); streams 0, 1, {b - 2}, {b - 1} == a solo card engine; stream 0 == "
+        f"the plain version (CPU engine, {time.perf_counter() - t1:.1f} s)")
+    trace_run(lambda: serving_trace(ref, lives, lens, perf, device), f"phase 10 (b) [trace, first {TRACE_HOPS} hops]")
+
+    # (c) the concert reference, windowed layout, the first CONCERT_HOPS hops
+    t1 = time.perf_counter()
+    cref = wav_to_chroma(concert_wavs[0], np.float32, device=device)
+    clive = concert_cols.T.cpu().numpy()[None]
+    clens = np.asarray([clive.shape[1]])
+    cperf = np.zeros(b, np.int64)
+    log(f"phase 10 (c): shared reference concert_00 ({cref.shape[1]} frames), {b} streams on concert_01 "
+        f"({clens[0]} hops), stream i joins at hop i; the run is cut to its first {CONCERT_HOPS} hops to bound "
+        f"the phase's time")
+    fms, cpaths, n = serving_run(cref, clive, clens, cperf, True, CONCERT_HOPS, device, "phase 10 (c) [windowed]")
+    launches["otw_multi_insert_block_long"] += n
+    for i in (0, b - 1):
+        want, solo_long = solo_path(cref, concert_cols[:, : CONCERT_HOPS - i], device)
+        if not solo_long or not np.array_equal(cpaths[i], want):
+            raise AssertionError(f"phase 10 (c): stream {i} differs from a solo long-layout engine "
+                                 f"(long layout {solo_long})")
+    log(f"phase 10 (c): streams 0 and {b - 1} == a solo long-layout card engine on the same columns "
+        f"({len(cpaths[0])} and {len(cpaths[b - 1])} points), {time.perf_counter() - t1:.1f} s")
+    del fms, cpaths
+
+    timing = phase_multi_rows(device, ref, cols[0])
+    log(f"phase 10: {time.perf_counter() - t0:.1f} s for (b), (c) and (d)")
+    rows = {}
+    for name, mode in (("otw_multi_insert_block_long", "delta"), ("otw_multi_insert_block", "whole")):
+        dev_ms, event_ms, bound_ms, bound_by = timing[mode][SERVING_STREAMS]
+        rows[name] = (launches[name], timing["err"], dev_ms, event_ms, timing["plain"][mode], bound_ms, bound_by)
+    return rows
+
+
+def serving_trace(ref, lives, lens, perf, device) -> None:
+    from real_time_audio_sync_tpu_torch.parallel import FusedMultiStreamFollower
+
+    fms = FusedMultiStreamFollower(ref, PARAMS, n_streams=len(perf), k_block=8, device=device)
+    serve(fms, lives, lens, perf, TRACE_HOPS)
 
 
 def otw_insert_bound_ms(c: int = PARAMS["c"], k: int = 8, f: int = 12) -> float:
@@ -1286,8 +1764,12 @@ def main() -> int:
         sl = phase_set_live_main_path(device, root)
         t9 = time.perf_counter()
         phase_delta_vs_plain(device)
-        concert = phase_concert(device, root)
+        concert, concert_wavs, concert_cols = phase_concert(device, root)
         log(f"phase 9: {time.perf_counter() - t9:.1f} s in all")
+        t10 = time.perf_counter()
+        phase_multi_vs_plain(device)
+        serving = phase_serving(device, root, concert_wavs, concert_cols)
+        log(f"phase 10: {time.perf_counter() - t10:.1f} s in all")
 
     # "ms" is each kernel's device time per launch (profiler; the CUDA-event
     # time when the trace holds none); otw_insert_block's at k_block 8,
@@ -1297,6 +1779,7 @@ def main() -> int:
     rows.update(wf)
     rows.update(sl)
     rows["otw_insert_block_long"] = concert
+    rows.update(serving)
     kernels = []
     for name, (n_launch, err, d_ms, e_ms, p_ms, b_ms, b_by) in rows.items():
         _, source, replaces = KERNELS[name]
@@ -1308,6 +1791,8 @@ def main() -> int:
             "event_ms": e_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": None,  # no PyTorch call computes these recurrences
         })
+        if name in serving:  # the grid: B streams a launch; the plain version timed at a small batch
+            kernels[-1].update(batch=SERVING_STREAMS, plain_batch=MULTI_PLAIN_BATCH)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -96,10 +96,13 @@ class FusedStreamingEngine(StatusPolling):
     ``device`` is where the state lives and the kernel runs: a CUDA device
     launches the hand-written kernel, ``"cpu"`` runs its plain version.
     ``long_ref`` picks the layout (module docstring); None means
-    ``n >= _LONG_REF_THRESHOLD``."""
+    ``n >= _LONG_REF_THRESHOLD``.  The positional order is the JAX
+    engine's; ``interpret`` (its Pallas interpret switch) is accepted and
+    ignored: the device decides."""
 
-    def __init__(self, ref, params, cfg_overrides: Optional[dict] = None, k_block: int = 8, *,
-                 device="cuda", long_ref: Optional[bool] = None):
+    def __init__(self, ref, params, cfg_overrides: Optional[dict] = None, k_block: int = 8,
+                 interpret: bool = False, long_ref: Optional[bool] = None, *, device="cuda"):
+        del interpret  # the tensors' device decides
         p = OTWParams.from_any(params)
         over = dict(ENGINE_OVERRIDES["otw"])
         over.update(cfg_overrides or {})
@@ -116,7 +119,7 @@ class FusedStreamingEngine(StatusPolling):
         self.long_ref = bool(n >= _LONG_REF_THRESHOLD if long_ref is None else long_ref)
         self._state = otw_insert.new_state(ref, self.cfg, self.cap, whole_path=not self.long_ref)
         if self.long_ref:
-            self._delta_len = N_STATUS + 2 * otw_insert.delta_slots(self.cfg, self.k_block)
+            self._delta_len = otw_insert.delta_width(self.cfg, self.k_block)
             # per-launch rows pending host accumulation: (status, dx, dy)
             # views of one launch's row, or one stacked (M, 8 + 2·d_pad) fold
             self._deltas: list = []

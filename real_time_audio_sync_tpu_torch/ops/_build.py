@@ -38,6 +38,10 @@ SIGNATURES = {
             [_P] * 9 + [_I] * 6 + [ctypes.c_float] + [_I] * 5 + [_P],
             ctypes.c_int,
         ),
+        "otw_multi_insert_block": (
+            [_P] * 11 + [_I] * 4 + [ctypes.c_float] + [_I] * 5 + [_L] * 4 + [_I, _P],
+            ctypes.c_int,
+        ),
         "otw_error_string": ([_I], ctypes.c_char_p),
         "otw_band_workspace_floats": ([_I, _I], ctypes.c_int),
     },

@@ -1,15 +1,18 @@
 """K streaming OTW inserts per launch on a band-relative window: the CUDA
 kernel's wrapper, its plain PyTorch version, and the engine state layout.
 
-Replaces two TPU kernels of ``real_time_audio_sync_tpu/ops/pallas_otw.py``
-as the two modes of one CUDA kernel (``csrc/otw_insert.cu``):
+Replaces four TPU kernels of ``real_time_audio_sync_tpu/ops/pallas_otw.py``
+as one CUDA kernel (``csrc/otw_insert.cu``) in two modes, over one stream
+(:func:`insert_block`) or a grid of B streams (:func:`multi_insert_block`):
 
 - whole path: ``_pallas_insert_block`` (:803) with its body
   ``_insert_block_body`` (:644) and band primitives ``_build_ops`` (:125),
-  ``_minplus_doubling`` (:87) and ``_first_min`` (:111) — committed points
-  go to the state's whole-path buffers;
-- delta: ``_pallas_insert_block_long`` (:959) — each launch writes its
-  status and the points it committed into one fresh int32 row
+  ``_minplus_doubling`` (:87) and ``_first_min`` (:111), and its B-stream
+  grid ``_pallas_multi_insert_block`` (:1080) — committed points go to the
+  state's whole-path buffers;
+- delta: ``_pallas_insert_block_long`` (:959) and its B-stream grid
+  ``_pallas_multi_insert_block_long`` (:1002) — each launch writes each
+  stream's status and the points it committed into one fresh int32 row
   ``[status (8) | dx (d_pad) | dy (d_pad)]`` (:func:`delta_slots`), the
   point at path index ``plen`` in slot ``plen − plen₀``, and the caller
   keeps the path on the host.  The TPU kernel's sliding live window and
@@ -63,17 +66,25 @@ from real_time_audio_sync_tpu_torch.models.online_core import BOTH, COL, PREV_NO
 N_SCALARS = 16
 N_STATUS = 8
 
-#: launches of the CUDA kernel in this process, whole-path mode and delta
-#: mode (the plain version does not count); a caller may reset them to 0
-#: before the run it wants to inspect
+#: launches of the CUDA kernel in this process — one stream in whole-path
+#: and delta mode, then B streams in whole-path and delta mode (the plain
+#: version does not count); a caller may reset them to 0 before the run it
+#: wants to inspect
 launches = 0
 delta_launches = 0
+multi_launches = 0
+multi_delta_launches = 0
 
 
 def delta_slots(cfg: OnlineConfig, k_block: int) -> int:
     """Point slots ``d_pad`` of one delta row: a launch commits at most
     ``loop_iters`` points per insert (pallas_otw.py:874)."""
     return k_block * cfg.loop_iters + 8
+
+
+def delta_width(cfg: OnlineConfig, k_block: int) -> int:
+    """Int32 slots of one stream's delta row ``[status | dx | dy]``."""
+    return N_STATUS + 2 * delta_slots(cfg, k_block)
 
 
 _WORKSPACE_FLOATS: dict = {}
@@ -132,13 +143,6 @@ def new_state(ref: torch.Tensor, cfg: OnlineConfig, cap: int, whole_path: bool =
     dev = ref.device
     ref_rows = torch.zeros((c + n, f), dtype=torch.float32, device=dev)
     ref_rows[c:] = ref.T
-    scalars = torch.zeros(N_SCALARS, dtype=torch.int32)
-    scalars[S_RC] = cfg.run_count_init
-    scalars[S_PREV] = PREV_NONE
-    scalars[S_LASTX] = -1
-    scalars[S_LASTY] = -1
-    scalars[S_FIRST] = 1
-    scalars[S_DIR] = BOTH
     p_len = cap + n + 16
     path = (lambda: torch.zeros(p_len, dtype=torch.int32, device=dev)) if whole_path else (lambda: None)
     return OTWState(
@@ -147,9 +151,36 @@ def new_state(ref: torch.Tensor, cfg: OnlineConfig, cap: int, whole_path: bool =
         live=torch.zeros((c + cap, f), dtype=torch.float32, device=dev),
         path_x=path(),
         path_y=path(),
-        scalars=scalars.to(dev),
+        scalars=fresh_scalars(cfg).to(dev),
         status=torch.zeros(N_STATUS, dtype=torch.int32, device=dev),
     )
+
+
+def fresh_scalars(cfg: OnlineConfig) -> torch.Tensor:
+    """A fresh stream's scalar state int32[16] (fused_streaming.py:129-135),
+    on the CPU."""
+    scalars = torch.zeros(N_SCALARS, dtype=torch.int32)
+    scalars[S_RC] = cfg.run_count_init
+    scalars[S_PREV] = PREV_NONE
+    scalars[S_LASTX] = -1
+    scalars[S_LASTY] = -1
+    scalars[S_FIRST] = 1
+    scalars[S_DIR] = BOTH
+    return scalars
+
+
+def _require(want: dict, device: torch.device) -> None:
+    """Raise unless each ``name: (tensor, dtype, shape or None)`` of ``want``
+    lies on ``device``, has that dtype and shape, and is contiguous."""
+    for name, (x, dtype, shape) in want.items():
+        if x.device != device:
+            raise ValueError(f"{name} is on {x.device}, cols on {device}")
+        if x.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype}, got {x.dtype}")
+        if shape is not None and tuple(x.shape) != tuple(shape):
+            raise ValueError(f"{name} must have shape {tuple(shape)}, got {tuple(x.shape)}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
 
 
 def _check(state: OTWState, cols: torch.Tensor, lens: Tuple[int, int, int], cfg: OnlineConfig, k_block: int,
@@ -160,8 +191,8 @@ def _check(state: OTWState, cols: torch.Tensor, lens: Tuple[int, int, int], cfg:
     f = state.ref.shape[1]
     want = {
         "window": (state.window, torch.float32, (c + 1, c + 1)),
-        "ref": (state.ref, torch.float32, (c + ref_len, f)),
-        "live": (state.live, torch.float32, (c + live_cap, f)),
+        "ref": (state.ref, torch.float32, None),
+        "live": (state.live, torch.float32, None),
         "scalars": (state.scalars, torch.int32, (N_SCALARS,)),
         "status": (state.status, torch.int32, (N_STATUS,)),
         "cols": (cols, torch.float32, None),
@@ -174,16 +205,12 @@ def _check(state: OTWState, cols: torch.Tensor, lens: Tuple[int, int, int], cfg:
         if state.path_x.ndim != 1:
             raise ValueError("path buffers must be 1-D")
     else:
-        want["delta"] = (delta, torch.int32, (N_STATUS + 2 * delta_slots(cfg, k_block),))
-    for name, (x, dtype, shape) in want.items():
-        if x.device != dev:
-            raise ValueError(f"{name} is on {x.device}, cols on {dev}")
-        if x.dtype != dtype:
-            raise TypeError(f"{name} must be {dtype}, got {x.dtype}")
-        if shape is not None and tuple(x.shape) != tuple(shape):
-            raise ValueError(f"{name} must have shape {tuple(shape)}, got {tuple(x.shape)}")
-        if not x.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+        want["delta"] = (delta, torch.int32, (delta_width(cfg, k_block),))
+    _require(want, dev)
+    # a stream of a batched state reads the first rows of its padded views
+    for name, x, rows in (("ref", state.ref, c + ref_len), ("live", state.live, c + live_cap)):
+        if x.ndim != 2 or x.shape[0] < rows or x.shape[1] != f:
+            raise ValueError(f"{name} must have at least {rows} rows of {f}, got {tuple(x.shape)}")
     if cols.ndim != 2 or cols.shape[1] != f:
         raise ValueError(f"cols must be (k, {f}), got {tuple(cols.shape)}")
     if not 0 <= n_valid <= cols.shape[0] <= k_block:
@@ -250,6 +277,192 @@ def insert_block(state: OTWState, cols: torch.Tensor, lens: Tuple[int, int, int]
 
 
 # ---------------------------------------------------------------------------
+# B streams per launch
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class MultiOTWState:
+    """B streams' engine state, one launch for all; every tensor lies on the
+    same device, and stream b's rows are :class:`OTWState`'s layout:
+
+    - ``window`` (B, c+1, c+1) f32;
+    - ``ref`` (R, c+N_max, F) f32: R = 1, one reference every stream reads,
+      or R = B, one per stream zero-padded to the longest;
+    - ``live`` (B, c+2·N_max, F) f32;
+    - ``path_x``/``path_y`` (B, 3·N_max+16) int32, or None in delta mode;
+    - ``scalars`` (B, 16) int32, ``status`` (B, 8) int32 (whole-path mode);
+    - ``lens`` (B, 2) int32: each stream's live capacity (2·N_b) and
+      reference length N_b, which decides where it stops."""
+
+    window: torch.Tensor
+    ref: torch.Tensor
+    live: torch.Tensor
+    path_x: Optional[torch.Tensor]
+    path_y: Optional[torch.Tensor]
+    scalars: torch.Tensor
+    status: torch.Tensor
+    lens: torch.Tensor
+
+    @property
+    def batch(self) -> int:
+        return self.window.shape[0]
+
+    def stream(self, b: int) -> OTWState:
+        """Stream b's state as views of the batch."""
+        return OTWState(
+            window=self.window[b], ref=self.ref[0 if self.ref.shape[0] == 1 else b], live=self.live[b],
+            path_x=None if self.path_x is None else self.path_x[b],
+            path_y=None if self.path_y is None else self.path_y[b],
+            scalars=self.scalars[b], status=self.status[b],
+        )
+
+
+def new_multi_state(refs, cfg: OnlineConfig, whole_path: bool = True) -> MultiOTWState:
+    """Fresh state for B streams on the references' device: ``refs`` is a
+    list of (F, N_b) tensors, one per stream; a list of one tensor repeated
+    (the same object B times) is held once and shared.  Each stream's
+    scalars are :func:`new_state`'s; ``whole_path=False`` allocates no path
+    buffers (delta mode)."""
+    b = len(refs)
+    shared = b > 0 and all(r is refs[0] for r in refs)
+    f = refs[0].shape[0]
+    n_max = max(r.shape[1] for r in refs)
+    c = cfg.c
+    dev = refs[0].device
+    if min(r.shape[1] for r in refs) < c:
+        raise ValueError(f"every reference must be at least one band ({c}) long")
+    ref_rows = torch.zeros((1 if shared else b, c + n_max, f), dtype=torch.float32, device=dev)
+    for i, r in enumerate(refs[:1] if shared else refs):
+        ref_rows[i, c : c + r.shape[1]] = r.T
+    p_len = 3 * n_max + 16
+    path = (lambda: torch.zeros((b, p_len), dtype=torch.int32, device=dev)) if whole_path else (lambda: None)
+    lens = torch.tensor([[2 * r.shape[1], r.shape[1]] for r in refs], dtype=torch.int32)
+    return MultiOTWState(
+        window=torch.full((b, c + 1, c + 1), cfg.sentinel, dtype=torch.float32, device=dev),
+        ref=ref_rows,
+        live=torch.zeros((b, c + 2 * n_max, f), dtype=torch.float32, device=dev),
+        path_x=path(),
+        path_y=path(),
+        scalars=fresh_scalars(cfg).repeat(b, 1).to(dev),
+        status=torch.zeros((b, N_STATUS), dtype=torch.int32, device=dev),
+        lens=lens.to(dev),
+    )
+
+
+def _check_multi(state: MultiOTWState, cols: torch.Tensor, ks: torch.Tensor, cfg: OnlineConfig, k_block: int,
+                 delta: Optional[torch.Tensor]) -> None:
+    b, c = state.batch, cfg.c
+    f = state.ref.shape[2]
+    want = {
+        "window": (state.window, torch.float32, (b, c + 1, c + 1)),
+        "ref": (state.ref, torch.float32, None),
+        "live": (state.live, torch.float32, None),
+        "scalars": (state.scalars, torch.int32, (b, N_SCALARS)),
+        "status": (state.status, torch.int32, (b, N_STATUS)),
+        "lens": (state.lens, torch.int32, (b, 2)),
+        "cols": (cols, torch.float32, None),
+        "ks": (ks, torch.int32, (b,)),
+    }
+    if delta is None:
+        if state.path_x is None or state.path_y is None:
+            raise ValueError("a whole-path launch needs the state's path buffers (or pass delta rows)")
+        want["path_x"] = (state.path_x, torch.int32, None)
+        want["path_y"] = (state.path_y, torch.int32, state.path_x.shape)
+    else:
+        want["delta"] = (delta, torch.int32, (b, delta_width(cfg, k_block)))
+    _require(want, cols.device)
+    if state.ref.ndim != 3 or state.ref.shape[0] not in (1, b):
+        raise ValueError(f"ref must be (1 or {b}, rows, F), got {tuple(state.ref.shape)}")
+    if state.live.ndim != 3 or state.live.shape[0] != b or state.live.shape[2] != f:
+        raise ValueError(f"live must be ({b}, rows, {f}), got {tuple(state.live.shape)}")
+    if delta is None and (state.path_x.ndim != 2 or state.path_x.shape[0] != b):
+        raise ValueError(f"path buffers must be ({b}, P), got {tuple(state.path_x.shape)}")
+    if cols.ndim != 3 or cols.shape[0] != b or cols.shape[2] != f or cols.shape[1] > k_block:
+        raise ValueError(f"cols must be ({b}, k <= {k_block}, {f}), got {tuple(cols.shape)}")
+    if c < 1:
+        raise ValueError(f"band c={c} must be >= 1")
+
+
+def multi_delta_views(delta: torch.Tensor, cfg: OnlineConfig, k_block: int):
+    """(status, dx, dy) views, each (B, 1, X), of B streams' delta rows (B,
+    8 + 2·d_pad) — the JAX follower's row-shaped layout."""
+    d_pad = delta_slots(cfg, k_block)
+    rows = delta[:, None]
+    return rows[..., :N_STATUS], rows[..., N_STATUS : N_STATUS + d_pad], rows[..., N_STATUS + d_pad :]
+
+
+def multi_insert_block(state: MultiOTWState, cols: torch.Tensor, ks: torch.Tensor, cfg: OnlineConfig, k_block: int,
+                       delta: Optional[torch.Tensor] = None) -> None:
+    """Run up to ``k_block`` streaming inserts for each of B streams in one
+    launch: stream b inserts the first ``ks[b]`` rows of ``cols[b]``
+    (``cols`` (B, k, F), ``ks`` (B,) int32, 0 ≤ ks[b] ≤ k ≤ k_block),
+    updating ``state`` in place.  A stream with ``ks[b] = 0`` inserts
+    nothing and still writes its status.
+
+    With ``delta`` None the launch commits points to the state's whole-path
+    buffers and each stream's status to ``state.status``; with ``delta`` an
+    int32 (B, 8 + 2·delta_slots) array, stream b writes ``[status | dx |
+    dy]`` into row b.
+
+    CUDA tensors launch the kernel (and count in :data:`multi_launches` or
+    :data:`multi_delta_launches`); CPU tensors run
+    :func:`multi_insert_block_reference`.  Nothing falls back: a failed
+    build or launch raises."""
+    global multi_launches, multi_delta_launches
+    if cols.device.type == "cpu":
+        multi_insert_block_reference(state, cols, ks, cfg, k_block, delta)
+        return
+    _check_multi(state, cols, ks, cfg, k_block, delta)
+    if cols.device.type != "cuda":
+        raise ValueError(f"no otw_insert kernel for device {cols.device}")
+    c, b = cfg.c, state.batch
+    from real_time_audio_sync_tpu_torch.ops import _build
+
+    lib = _build.load("otw_insert").lib
+    if delta is None:
+        status, path_x, path_y = state.status, state.path_x, state.path_y
+        p_len, path_stride, status_stride = state.path_x.shape[1], state.path_x.shape[1], N_STATUS
+    else:
+        d_pad = delta_slots(cfg, k_block)
+        status, path_x, path_y = delta, delta[:, N_STATUS:], delta[:, N_STATUS + d_pad :]
+        p_len, path_stride, status_stride = d_pad, delta.shape[1], delta.shape[1]
+    work = window_workspace(lib, c, b, cols.device)
+    ref_stride = 0 if state.ref.shape[0] == 1 else state.ref.shape[1] * state.ref.shape[2]  # shared: 0
+    with torch.cuda.device(cols.device):
+        stream = torch.cuda.current_stream(cols.device).cuda_stream
+        err = lib.otw_multi_insert_block(
+            state.window.data_ptr(), None if work is None else work.data_ptr(), state.ref.data_ptr(),
+            state.live.data_ptr(), path_x.data_ptr(), path_y.data_ptr(), state.scalars.data_ptr(),
+            status.data_ptr(), cols.data_ptr(), state.lens.data_ptr(), ks.data_ptr(),
+            b, c, state.ref.shape[2], p_len, cfg.sentinel, cfg.max_run_count, int(cfg.monotone_path),
+            int(cfg.euclidean), cfg.loop_iters, int(delta is not None),
+            ref_stride, state.live.shape[1] * state.live.shape[2],
+            path_stride, status_stride, cols.shape[1], stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"otw_multi_insert_block launch failed (B={b}, c={c}): "
+                           f"{lib.otw_error_string(err).decode()}")
+    if delta is None:
+        multi_launches += 1
+    else:
+        multi_delta_launches += 1
+
+
+def multi_insert_block_reference(state: MultiOTWState, cols: torch.Tensor, ks: torch.Tensor, cfg: OnlineConfig,
+                                 k_block: int, delta: Optional[torch.Tensor] = None) -> None:
+    """Plain PyTorch version of the batched launch, on any device:
+    :func:`insert_block_reference` over each stream's views, so it equals
+    the solo plain version stream by stream by construction."""
+    _check_multi(state, cols, ks, cfg, k_block, delta)
+    lens = state.lens.tolist()
+    for b, k in enumerate(ks.tolist()):
+        k = max(0, min(k, cols.shape[1]))
+        insert_block_reference(state.stream(b), cols[b, :k], (lens[b][0], lens[b][1], k), cfg, k_block,
+                               None if delta is None else delta[b])
+
+
+# ---------------------------------------------------------------------------
 # The plain PyTorch version
 # ---------------------------------------------------------------------------
 
@@ -265,7 +478,10 @@ def _cost(rows: torch.Tensor, fixed: torch.Tensor, euclidean: bool) -> torch.Ten
     s = torch.zeros(rows.shape[0], dtype=torch.float32, device=rows.device)
     for f in range(rows.shape[1]):
         s = s + terms[:, f]
-    return torch.sqrt(s) if euclidean else 1.0 - s
+    # the square root correctly rounded, as the kernel's __fsqrt_rn: ATen's
+    # vectorised float32 sqrt on AVX-512 CPUs is not (about 0.6 % of values
+    # land one ulp off), while a float64 sqrt rounded to float32 is
+    return torch.sqrt(s.double()).float() if euclidean else 1.0 - s
 
 
 def _minplus_doubling(b: torch.Tensor, cost: torch.Tensor) -> torch.Tensor:

@@ -107,9 +107,12 @@ def _launch(fn_name: str, x: torch.Tensor, *args) -> None:
                            f"{lib.wavefront_error_string(err).decode()}")
 
 
-def wavefront_dp(cost: torch.Tensor, spec: StepSpec = DTW_SPEC) -> Tuple[torch.Tensor, torch.Tensor]:
+def wavefront_dp(cost: torch.Tensor, spec: StepSpec = DTW_SPEC,
+                 unroll: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(acc, back)`` of the DP over ``cost`` (M, N): ``acc`` in the cost's
     dtype (float32 or float64), ``back`` int8 codes per ``spec``.
+    ``unroll`` is the JAX package's tracing switch (straight-line code
+    instead of a loop, the same result); it is accepted and ignored.
 
     A CUDA tensor launches the kernel (counted in :data:`dp_launches`), a
     CPU tensor runs :func:`wavefront_dp_reference`; nothing falls back."""
@@ -133,9 +136,11 @@ def wavefront_dp(cost: torch.Tensor, spec: StepSpec = DTW_SPEC) -> Tuple[torch.T
     return acc, back
 
 
-def backtrack(back: torch.Tensor, spec: StepSpec = DTW_SPEC) -> Tuple[torch.Tensor, torch.Tensor]:
+def backtrack(back: torch.Tensor, spec: StepSpec = DTW_SPEC,
+              unroll: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(points, length)`` of the path through ``back`` (M, N) int8, on
-    ``back``'s device (contract in the module docstring).
+    ``back``'s device (contract in the module docstring).  ``unroll`` is
+    accepted and ignored, as in :func:`wavefront_dp`.
 
     A CUDA tensor launches the kernel (counted in
     :data:`backtrack_launches`), a CPU tensor runs

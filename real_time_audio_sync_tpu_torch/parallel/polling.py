@@ -1,0 +1,94 @@
+"""Status polling for the batched (multi-stream) followers.
+
+The counterpart of the JAX package's ``parallel/polling.py``
+``BatchedStatusPolling``, under its method names, built the way the port's
+solo ``StatusPolling`` is built (``models/online_core.py``): after every
+launch the (B, 8) status rows are copied into a fresh pinned host buffer
+with an asynchronous copy on the current stream, and a ``torch.cuda.Event``
+is recorded behind it.  Completion is probed with ``event.query()`` (a
+local check, no synchronization) and reading a completed pinned buffer
+costs nothing, so no harvest thread is needed: the JAX worker thread exists
+for a relay round-trip that the card does not have.  On the CPU the status
+is ready at once.
+
+The contract is the JAX one: the per-stream status rows are cumulative, so
+the newest completed vector subsumes everything dispatched before it; the
+final status is never lost (a completed entry stays in ``_latest_done``
+until it is consumed, and :meth:`_settle_status` waits for the newest);
+stop masks are monotone ORs (the subclass's ``_consume``), and the
+overflow bit raises there.
+
+Subclasses provide ``_consume(vec)``, which applies one harvested
+(B, 8) int32 status array to ``self._stopped`` and friends.
+"""
+
+from __future__ import annotations
+
+import time
+
+import torch
+
+
+class BatchedStatusPolling:
+    """Mixin: rate-limited, non-blocking reads of B streams' status rows."""
+
+    def _init_batched_polling(self) -> None:
+        self._outstanding: list = []  # [(host (B, 8) int32, event | None)], oldest first
+        self._latest_done = None  # newest completed-but-unread host status
+        self.poll_min_interval = 2048 / 22050.0  # one feature hop
+        self._last_poll_time = 0.0
+
+    def _record_status(self, status: torch.Tensor) -> None:
+        """Snapshot a launch's status rows without waiting for the device."""
+        rows = status.reshape(status.shape[0], -1)
+        if rows.is_cuda:
+            host = torch.empty(rows.shape, dtype=rows.dtype, pin_memory=True)
+            host.copy_(rows, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record()
+        else:
+            host, event = rows.clone(), None
+        self._outstanding.append((host, event))
+
+    # -- free local probes ---------------------------------------------------
+
+    def _probe(self) -> None:
+        """Retire completed in-flight statuses (execution is in stream order,
+        so a completed entry subsumes all before it)."""
+        q = self._outstanding
+        while q and (q[0][1] is None or q[0][1].query()):
+            self._latest_done = q.pop(0)[0]
+
+    def _in_flight(self) -> int:
+        self._probe()
+        return len(self._outstanding)
+
+    # -- reads ---------------------------------------------------------------
+
+    def _poll_status(self) -> None:
+        """Non-blocking refresh: retire finished launches and consume the
+        newest completed vector if the rate limit allows; otherwise the
+        vector stays in ``_latest_done`` for a later poll."""
+        self._probe()
+        if self._latest_done is None or self._stopped.all():
+            return
+        now = time.monotonic()
+        if now - self._last_poll_time < self.poll_min_interval:
+            return
+        self._last_poll_time = now
+        done, self._latest_done = self._latest_done, None
+        self._consume(done.numpy())
+
+    def _settle_status(self) -> None:
+        """Blocking: consume the NEWEST in-flight status (waiting on the tail
+        subsumes everything before), or the newest completed one."""
+        if self._outstanding:
+            host, event = self._outstanding[-1]
+            if event is not None:
+                event.synchronize()
+            self._outstanding = []
+            self._latest_done = None
+            self._consume(host.numpy())
+        elif self._latest_done is not None:
+            done, self._latest_done = self._latest_done, None
+            self._consume(done.numpy())

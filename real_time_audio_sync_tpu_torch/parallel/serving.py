@@ -1,0 +1,309 @@
+"""Multi-stream serving: follow B concurrent live performances on one card.
+
+The counterpart of the JAX package's ``parallel/serving.py``
+``FusedMultiStreamFollower``: one launch of the K-insert kernel per hop
+block for the whole batch (``ops/otw_insert.multi_insert_block``, a grid of
+B thread blocks, one per stream), O(c²) band state per stream instead of a
+dense (2N, N) matrix.  Users: one card following many live performances,
+or one concert with many listeners who joined at different times.
+
+Two layouts with bit-equal paths, as in the JAX package:
+
+- windowed, the default at every N (``long_ref=None`` or True): the
+  kernel's delta mode (TPU kernel ``_pallas_multi_insert_block_long``);
+  each launch writes one (B, 8 + 2·d_pad) int32 row block, pending rows
+  fold on the device every ``_delta_stack`` launches
+  (``fold_delta_tail``), and :meth:`FusedMultiStreamFollower.paths`
+  drains them into host paths, vectorised over streams;
+- whole buffer (``long_ref=False``): the kernel's whole-path mode (TPU
+  kernel ``_pallas_multi_insert_block``); the device keeps every stream's
+  path.
+
+The JAX follower's ``mesh=`` (stream sharding over chips) has no
+counterpart on one card yet, and its XLA ``MultiStreamFollower`` waits for
+the pure-torch online core.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from real_time_audio_sync_tpu_torch.config import OTWParams
+from real_time_audio_sync_tpu_torch.models.fused_streaming import _DELTA_STACK, fold_delta_tail, iter_delta_rows
+from real_time_audio_sync_tpu_torch.models.online_core import ENGINE_OVERRIDES, OnlineConfig
+from real_time_audio_sync_tpu_torch.ops import otw_insert
+from real_time_audio_sync_tpu_torch.ops.otw_insert import N_STATUS, S_PLEN
+from real_time_audio_sync_tpu_torch.parallel.polling import BatchedStatusPolling
+
+#: pinned host slots of the column staging ring (each guarded by the event
+#: of the copy that last read it)
+_STAGING_SLOTS = 8
+
+
+class _ColumnStaging:
+    """One dispatch's columns (B, k, F) f32 and counts (B,) int32 in one
+    pinned host slot, shipped to the card with ONE asynchronous copy into a
+    device buffer (stream-ordered behind the previous launch that read it).
+    A slot is rewritten only after the event recorded behind its last copy
+    has completed: ``_drain`` may dispatch past ``max_in_flight``, so the
+    ring's size alone does not guarantee it."""
+
+    def __init__(self, b: int, k_block: int, f: int, device: torch.device):
+        n = b * k_block * f + b
+        self.f = f
+        self.host = [torch.empty(n, dtype=torch.float32, pin_memory=True) for _ in range(_STAGING_SLOTS)]
+        self.events: list = [None] * _STAGING_SLOTS
+        self.dev = torch.empty(n, dtype=torch.float32, device=device)
+        self.slot = 0
+
+    def put(self, block: np.ndarray, ks: np.ndarray):
+        b, k = block.shape[:2]
+        n_cols = b * k * self.f
+        i, self.slot = self.slot, (self.slot + 1) % _STAGING_SLOTS
+        if self.events[i] is not None:
+            self.events[i].synchronize()
+        view = self.host[i].numpy()
+        view[:n_cols] = block.reshape(-1)
+        view[n_cols : n_cols + b].view(np.int32)[:] = ks
+        self.dev[: n_cols + b].copy_(self.host[i][: n_cols + b], non_blocking=True)
+        self.events[i] = torch.cuda.Event()
+        self.events[i].record()
+        return self.dev[:n_cols].view(b, k, self.f), self.dev[n_cols : n_cols + b].view(torch.int32)
+
+
+class FusedMultiStreamFollower(BatchedStatusPolling):
+    """Follow ``B`` live performances with the fused K-insert kernel, one
+    launch per hop block for the whole batch.
+
+    ``ref``: one shared reference (an array or tensor (F, N)) followed by
+    all ``n_streams`` streams — held once on the card — or a sequence of
+    per-stream references (zero-padded to the longest; each stream stops at
+    its true length).
+
+    :meth:`feed` takes one chroma column per stream (``active`` masks
+    streams with no new frame) with the solo engine's adaptive coalescing:
+    frames dispatch at once while fewer than ``max_in_flight`` launches are
+    unfinished and coalesce into up-to-``k_block`` launches only under
+    saturation, never waiting for audio that has not arrived.  Committed
+    paths are bit-equal to solo ``FusedStreamingEngine`` streams.
+
+    The positional order is the JAX follower's.  ``interpret`` is accepted
+    and ignored (the device decides); ``mesh`` must be None.  ``device`` is
+    where the state lives and the kernel runs: a CUDA device launches the
+    kernel, ``"cpu"`` runs its plain version."""
+
+    def __init__(self, ref, params, n_streams: Optional[int] = None, cfg_overrides: Optional[dict] = None,
+                 k_block: int = 8, interpret: bool = False, mesh=None, max_in_flight: int = 4,
+                 long_ref: Optional[bool] = None, *, device="cuda"):
+        del interpret  # the tensors' device decides
+        if mesh is not None:
+            raise NotImplementedError("mesh=: stream sharding over several cards is not ported yet "
+                                      "(ROADMAP Queue 1 item 9)")
+        p = OTWParams.from_any(params)
+        over = dict(ENGINE_OVERRIDES["otw"])
+        over.update(cfg_overrides or {})
+        self.cfg = OnlineConfig(c=p.c, max_run_count=p.max_run_count, **over)
+        self.k_block = int(k_block)
+        self.max_in_flight = int(max_in_flight)
+        self.device = torch.device(device)
+
+        def on_device(r):
+            return torch.as_tensor(r, dtype=torch.float32, device=self.device)
+
+        self.shared_ref = isinstance(ref, (np.ndarray, torch.Tensor)) and ref.ndim == 2
+        if self.shared_ref:
+            if n_streams is None:
+                raise ValueError("n_streams is required with a shared reference")
+            self.b = int(n_streams)
+            refs = [on_device(ref)] * self.b
+        else:
+            refs = [on_device(r) for r in ref]
+            self.b = len(refs)
+            if n_streams is not None and n_streams != self.b:
+                raise ValueError(f"n_streams {n_streams} != {self.b} references")
+        self.ref_lens = np.asarray([r.shape[1] for r in refs], np.int32)
+        self.f = refs[0].shape[0]
+
+        # windowed (delta) layout by default at every N (serving.py:250-267)
+        self.long_ref = True if long_ref is None else bool(long_ref)
+        self._delta_stack = _DELTA_STACK
+        self._state = otw_insert.new_multi_state(refs, self.cfg, whole_path=not self.long_ref)
+        if self.long_ref:
+            self._delta_len = otw_insert.delta_width(self.cfg, self.k_block)
+            self._deltas: list = []  # (status, dx, dy) (B, 1, X) views or folded stacks
+            self._reset_host_paths()
+        self._staging = _ColumnStaging(self.b, self.k_block, self.f, self.device) if self.device.type == "cuda" else None
+
+        # columnar pending queue (serving.py:386-398): one (B, cap, F) buffer
+        # with per-stream counts.  _drain dispatches whenever any stream holds
+        # 4*k_block, and feed appends one column per stream per call, so
+        # counts never exceed 4*k_block.
+        self._pend_cap = 4 * self.k_block
+        self._pend_buf = np.zeros((self.b, self._pend_cap, self.f), np.float32)
+        self._pend_n = np.zeros(self.b, np.int64)
+        self._stopped = np.zeros(self.b, bool)
+        self._last_points = np.zeros((self.b, 3), np.int64)  # plen, x, y
+        self.dispatched_block_sizes: List[int] = []
+        self._init_batched_polling()
+
+    # -- streaming API -------------------------------------------------------
+
+    def feed(self, cols, active: Optional[np.ndarray] = None) -> np.ndarray:
+        """Queue one chroma column per stream (B, F) and dispatch adaptively;
+        returns the per-stream stopped mask as of the last harvest (lazy,
+        like the solo engines)."""
+        cols = np.asarray(cols, np.float32)
+        if cols.shape != (self.b, self.f):
+            raise ValueError(f"expected a ({self.b}, {self.f}) column batch")
+        act = np.ones(self.b, bool) if active is None else np.asarray(active, bool)
+        rows = np.nonzero(act & ~self._stopped)[0]
+        if rows.size:
+            # the fancy write COPIES each column into the queue, so a caller
+            # may reuse its cols buffer while the frames are queued
+            self._pend_buf[rows, self._pend_n[rows]] = cols[rows]
+            self._pend_n[rows] += 1
+        self._drain()
+        self.poll()
+        return self._stopped.copy()
+
+    def _drain(self) -> None:
+        while True:
+            avail = int(self._pend_n.max()) if self.b else 0
+            if avail == 0:
+                return
+            # liveness safeguard: an over-full queue dispatches anyway
+            if self._in_flight() >= self.max_in_flight and avail < 4 * self.k_block:
+                return
+            self._dispatch()
+
+    def _reset_pending(self) -> None:
+        """Drop every queued column (checkpoint restore: queued feed()
+        columns predate the restored state)."""
+        self._pend_n[:] = 0
+
+    def _dispatch(self) -> None:
+        """One launch over each stream's first (up to k_block) queued columns."""
+        ks = np.minimum(self._pend_n, self.k_block).astype(np.int32)
+        k_max = int(ks.max())
+        # positions past a stream's k hold stale queue rows: shipped as zeros
+        valid = np.arange(k_max)[None, :, None] < ks[:, None, None]
+        block = np.where(valid, self._pend_buf[:, :k_max], np.float32(0))
+        rem = self._pend_n - ks
+        rem_max = int(rem.max())
+        if rem_max:  # pop each stream's first k rows: a vectorised forward shift
+            take = np.minimum(ks[:, None] + np.arange(rem_max)[None, :], self._pend_cap - 1)
+            self._pend_buf[:, :rem_max] = np.take_along_axis(self._pend_buf, take[:, :, None], axis=1)
+        self._pend_n = rem
+        self.dispatched_block_sizes.append(k_max)
+        if self._staging is not None:
+            cols, ks_t = self._staging.put(block, ks)
+        else:
+            cols, ks_t = torch.from_numpy(block).to(self.device), torch.from_numpy(ks).to(self.device)
+        if self.long_ref:
+            # a fresh row block per launch: it stays pending until paths() drains it
+            rows = torch.empty((self.b, self._delta_len), dtype=torch.int32, device=self.device)
+            otw_insert.multi_insert_block(self._state, cols, ks_t, self.cfg, self.k_block, delta=rows)
+            views = otw_insert.multi_delta_views(rows, self.cfg, self.k_block)
+            self._deltas.append(views)
+            fold_delta_tail(self._deltas, self._delta_stack)
+            self._record_status(views[0])
+        else:
+            otw_insert.multi_insert_block(self._state, cols, ks_t, self.cfg, self.k_block)
+            self._record_status(self._state.status)
+        self.poll()
+
+    # -- the windowed layout's host paths ------------------------------------
+
+    def _reset_host_paths(self, paths: Optional[list] = None) -> None:
+        """Set the drained host paths to ``paths`` (one (P_b, 2) array per
+        stream; None: empty).  They are kept as flat chunks of points with
+        their stream index, in dispatch order within each stream."""
+        paths = [np.zeros((0, 2), np.int32)] * self.b if paths is None else paths
+        counts = [len(p) for p in paths]
+        pts = np.concatenate([np.asarray(p, np.int32).reshape(-1, 2) for p in paths])
+        self._host_keys = [np.repeat(np.arange(self.b), counts)]
+        self._host_x, self._host_y = [pts[:, 0]], [pts[:, 1]]
+        self._drained_plen = np.asarray(counts, np.int64)
+
+    def _drain_deltas(self) -> None:
+        """Move every pending launch's committed points into the host paths
+        (waits for in-flight launches), vectorised over streams and
+        launches: launch m's row of stream b holds ``plen_m − plen_{m−1}``
+        new points.  Zero-commit rows — a stream with no column in the
+        launch, a frozen post-stop stream, LiveNoteV2's guard — repeat
+        ``plen`` and add nothing (serving.py:467-481)."""
+        for rows in iter_delta_rows(self._deltas):
+            rows = rows.reshape(rows.shape[0], self.b, -1)  # (M, B, 8 + 2·d_pad)
+            d_pad = (rows.shape[-1] - N_STATUS) // 2
+            plens = rows[:, :, 1].astype(np.int64)  # (M, B), monotone per stream
+            n_new = plens - np.concatenate([self._drained_plen[None], plens[:-1]])
+            take = (np.arange(d_pad) < n_new[..., None]).transpose(1, 0, 2)  # (B, M, d_pad)
+            self._host_x.append(rows[:, :, N_STATUS : N_STATUS + d_pad].transpose(1, 0, 2)[take])
+            self._host_y.append(rows[:, :, N_STATUS + d_pad :].transpose(1, 0, 2)[take])
+            self._host_keys.append(np.repeat(np.arange(self.b), take.sum(axis=(1, 2))))
+            self._drained_plen = np.maximum(self._drained_plen, plens[-1])
+
+    # -- status --------------------------------------------------------------
+
+    def poll(self) -> np.ndarray:
+        """Non-blocking status refresh (the solo engines' ``poll``): retire
+        finished launches and consume the newest completed status if the
+        rate limit allows.  Returns the per-stream stopped mask."""
+        self._poll_status()
+        return self._stopped.copy()
+
+    def _consume(self, vec: np.ndarray) -> None:
+        vec = vec.reshape(self.b, -1)  # (B, 8) status rows
+        self._stopped |= (vec[:, 0] & 1).astype(bool)
+        if (vec[:, 0] & 2).any():  # sticky in the kernel's scalar state
+            raise AssertionError("column-phase loop bound violated")
+        # per-row monotone guard (serving.py:494-509): the rows are
+        # cumulative — (plen, live) never decreases per stream — so only
+        # rows at or ahead of the current snapshot are applied
+        pts = vec[:, 1:4].astype(np.int64)
+        cur = self._last_points
+        newer = (pts[:, 0] > cur[:, 0]) | ((pts[:, 0] == cur[:, 0]) & (pts[:, 1] >= cur[:, 1]))
+        self._last_points = np.where(newer[:, None], pts, cur)
+
+    def flush(self) -> np.ndarray:
+        """Dispatch all queued columns and wait for every in-flight launch;
+        returns the final per-stream stopped mask."""
+        while self._pend_n.any():
+            self._dispatch()
+        self._settle_status()
+        return self._stopped.copy()
+
+    # -- inspection ----------------------------------------------------------
+
+    @property
+    def stopped(self) -> np.ndarray:
+        return self.poll()
+
+    @property
+    def last_points(self) -> np.ndarray:
+        """(B, 3) [path_len, live, ref] per stream from the newest harvest —
+        score positions without fetching paths."""
+        self.poll()
+        return self._last_points.copy()
+
+    def paths(self) -> List[np.ndarray]:
+        """Per-stream committed paths, (P_b, 2) int32 each (waits for the
+        device; the windowed layout drains every pending launch's rows)."""
+        if self.long_ref:
+            self._drain_deltas()
+            keys = np.concatenate(self._host_keys)
+            order = np.argsort(keys, kind="stable")  # stream-major, dispatch order within a stream
+            pts = np.stack([np.concatenate(self._host_x)[order], np.concatenate(self._host_y)[order]], axis=1)
+            pts = pts.astype(np.int32)
+            counts = np.bincount(keys, minlength=self.b)
+            self._host_keys = [np.repeat(np.arange(self.b), counts)]  # keep the merged chunk
+            self._host_x, self._host_y = [pts[:, 0].copy()], [pts[:, 1].copy()]
+            return np.split(pts, np.cumsum(counts)[:-1])
+        st = self._state
+        plens = st.scalars[:, S_PLEN].cpu().numpy()
+        m = int(plens.max()) if self.b else 0
+        px, py = st.path_x[:, :m].cpu().numpy(), st.path_y[:, :m].cpu().numpy()
+        return [np.stack([px[i, : plens[i]], py[i, : plens[i]]], axis=1) for i in range(self.b)]

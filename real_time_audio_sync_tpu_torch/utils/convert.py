@@ -9,8 +9,12 @@ standard-layout functions take and return the state tuple in the engine's
 order ``(window, live, path_x, path_y, scalars)``; the long-reference
 functions take and return ``(window, live, scalars, host_path)``, where the
 JAX engine's live history is a sliding window of rows and the committed
-path lives on the host.  The reference features are not state (each engine
-builds them from the same chroma).
+path lives on the host.  The ``multi_*`` functions carry a JAX
+``FusedMultiStreamFollower``'s batched state (a leading stream axis, its
+SMEM arrays row-shaped ``(B, 1, X)``) stream by stream over the same
+functions, into the port's ``MultiOTWState`` layout and back.  The
+reference features are not state (each engine builds them from the same
+chroma).
 """
 
 from __future__ import annotations
@@ -129,3 +133,49 @@ def long_state_to_jax(window, live, scalars, host_path, *, c: int, n: int, f: in
     rows = host(live)[base : min(base + l_pad, c + cap)]
     live_win[: rows.shape[0], :f] = rows
     return w, live_win, sc, np.array(host_path, dtype=np.int32).reshape(-1, 2)
+
+
+def multi_otw_state_from_jax(w, live_t, path_x, path_y, scalars, *, c: int, n_max: int, f: int):
+    """A JAX multi-stream follower's whole-buffer state (numpy: w (B, ·, ·),
+    live_t (B, ·, 128), path_x/path_y (B, 1, P), scalars (B, 1, 16)) → the
+    port's ``(window, live, path_x, path_y, scalars)`` with a leading
+    stream axis, CPU tensors; ``n_max`` is the longest reference."""
+    per = [otw_state_from_jax(np.asarray(w)[b], np.asarray(live_t)[b], np.asarray(path_x)[b, 0],
+                              np.asarray(path_y)[b, 0], np.asarray(scalars)[b, 0], c=c, n=n_max, f=f)
+           for b in range(np.asarray(w).shape[0])]
+    return tuple(torch.stack([p[i] for p in per]) for i in range(5))
+
+
+def multi_otw_state_to_jax(window, live, path_x, path_y, scalars, *, c: int, n_max: int, f: int):
+    """The inverse of :func:`multi_otw_state_from_jax`: numpy arrays in the
+    JAX follower's whole-buffer layout."""
+    per = [otw_state_to_jax(window[b], live[b], path_x[b], path_y[b], scalars[b], c=c, n=n_max, f=f)
+           for b in range(window.shape[0])]
+    w, live_t, px, py, sc = (np.stack([p[i] for p in per]) for i in range(5))
+    return w, live_t, px[:, None], py[:, None], sc[:, None]
+
+
+def multi_long_state_from_jax(w, live_win, scalars, host_paths, *, c: int, ref_lens, f: int):
+    """A JAX multi-stream follower's windowed state (numpy: w, live_win
+    (B, l_pad, 128), scalars (B, 1, 16)) and its drained host paths (one
+    (P_b, 2) array per stream; drain its pending rows first) → the port's
+    ``(window, live, scalars, host_paths)``, the live history zero-padded
+    to the longest reference's ``c + 2·N_max`` rows."""
+    ref_lens = [int(n) for n in ref_lens]
+    n_max = max(ref_lens)
+    per = [long_state_from_jax(np.asarray(w)[b], np.asarray(live_win)[b], np.asarray(scalars)[b, 0],
+                               host_paths[b], c=c, n=n, f=f) for b, n in enumerate(ref_lens)]
+    live = torch.zeros((len(per), c + 2 * n_max, f), dtype=torch.float32)
+    for b, p in enumerate(per):
+        live[b, : p[1].shape[0]] = p[1]
+    return torch.stack([p[0] for p in per]), live, torch.stack([p[2] for p in per]), [p[3] for p in per]
+
+
+def multi_long_state_to_jax(window, live, scalars, host_paths, *, c: int, ref_lens, f: int, k_block: int):
+    """The inverse of :func:`multi_long_state_from_jax` for the rows the band
+    can still read: numpy arrays in the JAX follower's windowed layout and
+    its host paths."""
+    per = [long_state_to_jax(window[b], live[b, : c + 2 * int(n)], scalars[b], host_paths[b], c=c, n=int(n), f=f,
+                             k_block=k_block) for b, n in enumerate(ref_lens)]
+    w, live_win, sc = (np.stack([p[i] for p in per]) for i in range(3))
+    return w, live_win, sc[:, None], [p[3] for p in per]

@@ -284,6 +284,26 @@ def test_engine_contract(monkeypatch):
     assert _engine(ref, long_ref=True)._state.path_x is None  # no whole-path buffer in delta mode
 
 
+def test_engine_takes_the_jax_positional_order():
+    """JAX's ``(ref, params, cfg_overrides, k_block, interpret, long_ref)``,
+    positional or by keyword; ``interpret`` is accepted and ignored."""
+    import inspect
+
+    names = list(inspect.signature(jfs.FusedStreamingEngine).parameters)
+    assert list(inspect.signature(FusedStreamingEngine).parameters)[: len(names)] == names
+    rng = np.random.default_rng(8)
+    ref, live = _make_pair(rng, n_ref=32, stretch=1.1)
+    eng = FusedStreamingEngine(ref, PARAMS, None, 8, False, True, device="cpu")
+    assert eng.long_ref and eng.k_block == 8
+    interp = FusedStreamingEngine(ref, PARAMS, k_block=8, interpret=True, device="cpu")
+    assert not interp.long_ref
+    for e in (eng, interp):
+        e.insert_block_nowait(live)
+        e.flush()
+    np.testing.assert_array_equal(eng.path_array, interp.path_array)
+    np.testing.assert_array_equal(eng.path_array, _xla_path(ref, live).path_array)
+
+
 @pytest.mark.parametrize("n,want", [(5999, False), (6000, True)])
 def test_long_ref_auto_rule_at_the_real_threshold(n, want):
     """The same call builds the same layout in both packages at the edge."""

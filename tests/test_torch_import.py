@@ -58,6 +58,7 @@ def test_no_source_line_imports_jax_or_the_jax_package():
 ENTRY_POINTS = [
     ("streaming.runtime", "ScoreFollower"),
     ("models.fused_streaming", "FusedStreamingEngine"),
+    ("parallel.serving", "FusedMultiStreamFollower"),
     ("features.chroma", "frontend_constants"),
     ("features.chroma", "chroma_from_samples"),
     ("features.chroma", "wav_to_chroma"),

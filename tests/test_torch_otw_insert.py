@@ -241,6 +241,108 @@ def test_delta_mode_matches_jax_long_kernel_launch_by_launch(variant, c, mrc, k_
     assert port.scalars[otw_insert.S_STOPPED] == 1
 
 
+# ---------------------------------------------------------------------------
+# B streams per launch (TPU kernels _pallas_multi_insert_block(_long))
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("whole_path", [True, False], ids=["whole", "delta"])
+@pytest.mark.parametrize("shared", [True, False], ids=["shared", "per_stream"])
+def test_batched_plain_equals_solo_plain_stream_by_stream(whole_path, shared):
+    """The batched plain version on a ragged batch — per-stream counts that
+    include 0, references of different lengths (or one shared), a stream
+    that stops past its reference's end and one that reaches the
+    live-capacity freeze — equals the solo plain version run on each stream
+    alone, launch by launch: window, live rows, scalars, status, path
+    buffers or delta rows."""
+    c, k_block, b = 6, 4, 5
+    # max_run_count 5 and a reference of 3c + 30 frames let the stuck stream
+    # (3) run out of live capacity before j reaches the end
+    cfg = OnlineConfig(c=c, max_run_count=5, **ENGINE_OVERRIDES["livenote_v2"])
+    rng = np.random.default_rng(800 + 2 * shared + whole_path)
+    if shared:
+        ref, _ = _stream(rng, "livenote_v2", n_ref=3 * c + 30)
+        refs = [ref] * b
+    else:
+        refs = [_stream(rng, "livenote_v2", n_ref=3 * c + 30 if i == 3 else c + 6 + 3 * i)[0] for i in range(b)]
+    lives = [_make_pair(np.random.default_rng(i), n_ref=r.shape[1], stretch=1.0)[1] for i, r in enumerate(refs)]
+    lives[1] = np.concatenate([lives[1], _unit_cols(rng.random((12, 12)) + 0.05)], axis=1)  # stops
+    lives[3] = _unit_cols(refs[3][:, :1] + 0.01 * rng.random((12, 2 * refs[3].shape[1] + 6)))  # freezes
+    ref_t = [torch.from_numpy(r) for r in refs]
+    state = otw_insert.new_multi_state([ref_t[0]] * b if shared else ref_t, cfg, whole_path=whole_path)
+    assert state.ref.shape[0] == (1 if shared else b)
+    solos = [otw_insert.new_state(r, cfg, 2 * r.shape[1], whole_path=whole_path) for r in ref_t]
+    ptr = [0] * b
+    width = otw_insert.delta_width(cfg, k_block)
+    launch = 0
+    while any(p < l.shape[1] for p, l in zip(ptr, lives)):
+        ks = np.asarray([0 if (launch + i) % 4 == 0 else min(1 + (launch + i) % k_block, l.shape[1] - p)
+                         for i, (p, l) in enumerate(zip(ptr, lives))], np.int32)
+        cols = np.zeros((b, k_block, 12), np.float32)
+        for i, (p, l) in enumerate(zip(ptr, lives)):
+            cols[i, : ks[i]] = l[:, p : p + ks[i]].T
+        rows = None if whole_path else torch.full((b, width), -7, dtype=torch.int32)
+        otw_insert.multi_insert_block(state, torch.from_numpy(cols), torch.from_numpy(ks), cfg, k_block, rows)
+        for i, solo in enumerate(solos):
+            row = None if whole_path else torch.full((width,), -5, dtype=torch.int32)
+            n = refs[i].shape[1]
+            otw_insert.insert_block_reference(solo, torch.from_numpy(cols[i, : ks[i]]), (2 * n, n, int(ks[i])), cfg,
+                                              k_block, row)
+            view = state.stream(i)
+            for name in ("window", "scalars"):
+                assert torch.equal(getattr(view, name), getattr(solo, name)), (launch, i, name)
+            assert torch.equal(view.live[: c + 2 * n], solo.live) and not view.live[c + 2 * n :].any()
+            if whole_path:
+                assert torch.equal(view.status, solo.status)
+                p_len = solo.path_x.shape[0]
+                assert torch.equal(view.path_x[:p_len], solo.path_x) and torch.equal(view.path_y[:p_len], solo.path_y)
+            else:
+                assert torch.equal(rows[i], row), (launch, i)
+            ptr[i] += int(ks[i])
+        launch += 1
+    sc = state.scalars
+    assert sc[1, otw_insert.S_STOPPED] == 1
+    assert sc[3, otw_insert.S_T] >= 2 * refs[3].shape[1] and sc[3, otw_insert.S_STOPPED] == 0
+
+
+def test_batched_wrapper_checks_its_arguments():
+    cfg = OnlineConfig(c=4, max_run_count=3, **ENGINE_OVERRIDES["otw"])
+    ref = torch.from_numpy(_unit_cols(np.random.default_rng(0).random((12, 10)) + 0.05).astype(np.float32))
+    state = otw_insert.new_multi_state([ref, ref[:, :8]], cfg, whole_path=False)
+    cols, ks = torch.zeros((2, 4, 12)), torch.ones(2, dtype=torch.int32)
+    assert state.lens.tolist() == [[20, 10], [16, 8]]
+    with pytest.raises(ValueError, match="path buffers"):
+        otw_insert.multi_insert_block(state, cols, ks, cfg, 4)
+    with pytest.raises(ValueError, match="delta"):
+        otw_insert.multi_insert_block(state, cols, ks, cfg, 4, torch.zeros((2, 5), dtype=torch.int32))
+    with pytest.raises(ValueError, match="cols"):
+        otw_insert.multi_insert_block(state, torch.zeros((2, 5, 12)), ks, cfg, 4,
+                                      torch.zeros((2, otw_insert.delta_width(cfg, 4)), dtype=torch.int32))
+    with pytest.raises(ValueError, match="at least one band"):
+        otw_insert.new_multi_state([ref[:, :3]], cfg)
+    otw_insert.multi_launches = otw_insert.multi_delta_launches = 0
+    otw_insert.multi_insert_block(state, cols, ks, cfg, 4,
+                                  torch.zeros((2, otw_insert.delta_width(cfg, 4)), dtype=torch.int32))
+    assert otw_insert.multi_launches == otw_insert.multi_delta_launches == 0  # the plain version counts nothing
+
+
+def test_plain_euclidean_cost_is_correctly_rounded():
+    """The plain version's Euclidean cost takes a correctly rounded square
+    root, as the kernel's ``__fsqrt_rn`` and the card's ``torch.sqrt`` do,
+    on every CPU (float32 ``torch.sqrt`` on AVX-512 is not: a card run of
+    ``chip_smoke.py`` found the CPU plain version one ulp off the kernel on
+    livenote_v2_diff)."""
+    g = torch.Generator().manual_seed(0)
+    for _ in range(200):
+        rows = torch.rand((51, 12), generator=g) * 0.3
+        fixed = torch.rand(12, generator=g) * 0.3
+        d = (rows - fixed).numpy()
+        s = np.zeros(51, np.float32)
+        for f in range(12):
+            s = (s + d[:, f] * d[:, f]).astype(np.float32)
+        np.testing.assert_array_equal(otw_insert._cost(rows, fixed, True).numpy(), np.sqrt(s))
+
+
 def test_wide_band_route_is_chosen_above_the_shared_memory_limit():
     """The band library decides where the (c+1)² window lives
     (``otw_band_workspace_floats``: 0 while the window and the scratch,

@@ -82,3 +82,19 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
     bad = twf.StepSpec(steps=((0, -1), (0, -1), (-1, -1)), weights=(1.0, 1.0, 2.0), codes=(0, 1, 2), corner_code=2)
     with pytest.raises(ValueError, match="steps"):
         twf.wavefront_dp(torch.ones((3, 4)), bad)
+
+
+def test_unroll_is_accepted_and_changes_nothing():
+    """JAX's ``unroll=`` (a tracing switch, models/wtw_async.py passes it)
+    is accepted by both wrappers and leaves the result as it was."""
+    import inspect
+
+    for fn, jfn in ((twf.wavefront_dp, jwf.wavefront_dp), (twf.backtrack, jwf.backtrack)):
+        assert list(inspect.signature(fn).parameters) == list(inspect.signature(jfn).parameters)
+    cost = torch.from_numpy(_cost((9, 11), np.float32, False))
+    acc, back = twf.wavefront_dp(cost, twf.WTW_SPEC, unroll=True)
+    ref_acc, ref_back = twf.wavefront_dp(cost, twf.WTW_SPEC)
+    assert torch.equal(acc, ref_acc) and torch.equal(back, ref_back)
+    pts, ln = twf.backtrack(back, twf.WTW_SPEC, True)
+    ref_pts, ref_ln = twf.backtrack(back, twf.WTW_SPEC)
+    assert torch.equal(pts, ref_pts) and int(ln) == int(ref_ln)
