@@ -108,6 +108,30 @@ Phases, each raising on failure (the process then exits non-zero):
    bound), the plain version at B = 4 from the same state, whose rows and
    states must equal the kernel's.
 
+11. streaming WTW for one stream (kernel #9, the fused K-column WTW
+   insert) —
+   (a) the kernel against its plain version on host copies, launch by
+   launch, at (w, hop_frames) in {(20, 10), (100, 50), (128, 64),
+   (20, 30)} (the harness's window, the live app's, the widest the kernel
+   takes, a hop past the window) x k_block in {1, 8, 32} x a fresh stream
+   running to its margin stop, a mid-stream margin stop and a capacity
+   stop, every third block ragged, two frozen launches after each stop:
+   delta rows, scalars and live history EQUAL;
+   (b) ``WTWFollower(ref, live, <live-app params>, engine="wtw_fused",
+   device="cuda")`` on ``sonata_allegro`` _01 against _00 (w = 100, hop 50)
+   in 2048-sample buffers as fast as the host allows: the path equal to
+   the port's host ``WTW`` on the card (kernels #7 and #8 a window) fed
+   8-column-aligned chunks, and beginning with the CPU plain engine's on
+   the card's columns over the first 1,000 hops (a cut); the other
+   payloads over those hops (int16 spans: the same path; host chroma: the
+   points that move; "auto": the mode it resolves to); wall, real-time
+   factor, host time a hop, launches, windows, the kernel's time on the
+   main path's first 64 launches (profiler, CUDA events, plain, bound) and
+   a traced slice;
+   (c) the piece's three pairs through ``align_pair(engine="wtw",
+   mode="fused", device="cuda")`` at the harness's widths (w = 20): wall
+   and ``PathScorer`` buckets a pair, paths equal to ``mode="oracle"``.
+
 The builds run in parallel (one ``nvcc`` per source).  Then one JSON line
 of per-kernel results, and last ``{"ok": true, "device": {...}}``.
 Without a CUDA device it exits non-zero before printing any result.
@@ -146,6 +170,9 @@ KERNELS = {
                                     "real_time_audio_sync_tpu/ops/pallas_otw.py:1002"),
     "otw_multi_insert_block": ("otw_insert", f"{CSRC}/otw_insert.cu",
                                "real_time_audio_sync_tpu/ops/pallas_otw.py:1080"),
+    # kernel #9: K hop columns of streaming WTW
+    "wtw_insert_block": ("wtw_insert", f"{CSRC}/wtw_insert.cu",
+                         "real_time_audio_sync_tpu/ops/pallas_wtw.py:360"),
 }
 # the card's published peaks (H100 SXM data sheet, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
@@ -178,6 +205,18 @@ TRACE_HOPS = 600
 MULTI_TIMING_BATCHES = (1, 4, 256, 1024)
 MULTI_PLAIN_BATCH = 4
 PLAIN_REPS = 4
+# phase 11: the (w, hop_frames) of the comparisons — the harness's window
+# (eval/corpus.DEFAULT_WTW_PARAMS), the live app's (WTWFollower's default),
+# the widest the kernel takes, and a hop past the window — and their
+# streams; the live app's parameters; the hops of the main path that the
+# CPU plain engine runs (a cut that bounds the phase's time; the card runs
+# all of them); the launches timed; the buffers of the traced slice
+WTW_SHAPES = ((20, 10), (100, 50), (128, 64), (20, 30))
+WTW_SCENARIOS = ("run", "margin", "capacity")
+LIVE_APP_WTW = {"fft_len": 4096, "hop_size": 2048, "dtw_win_size": 4096 * 50, "dtw_hop_size": 2048 * 50}
+WTW_PLAIN_HOPS = 1000
+WTW_TIMED_LAUNCHES = 64
+WTW_TRACE_BUFFERS = 800
 
 
 def log(msg: str) -> None:
@@ -331,29 +370,42 @@ def time_launches(fn, state, rows, k: int, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def kernel_device_ms(launch, reps: int, kernel: str):
-    """(mean device ms per launch of the CUDA kernel named ``kernel``,
-    launches of it the trace holds) from a torch.profiler trace of
-    ``launch(r)`` for r < ``reps``; the mean is None when the trace holds
-    no device time of the kernel."""
+def kernel_launch_us(launch, reps: int, kernel: str):
+    """The device µs of each launch of the CUDA kernel named ``kernel`` in
+    a torch.profiler trace of ``launch(r)`` for r < ``reps``, in launch
+    order.  The profiler sometimes drops some of a trace's device events:
+    this traces again (up to three times) until a trace holds all of
+    them, and returns the fullest trace's list."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    # the profiler sometimes keeps few of a trace's device events:
-    # trace again (up to three times) until it holds at least half of them
+    best = []
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for r in range(reps):
                 launch(r)
             torch.cuda.synchronize()
-        hits = [e for e in prof.key_averages()
-                if kernel in e.key and e.self_device_time_total > 0]
-        traced = sum(e.count for e in hits)
-        if 2 * traced >= reps:
+        hits = [e for e in prof.events() if kernel in e.name and getattr(e, "device_type", None) == DeviceType.CUDA]
+        if len(hits) > len(best):
+            best = [e.time_range.elapsed_us() for e in sorted(hits, key=lambda e: e.time_range.start)]
+        if len(best) == reps:
             break
-    if traced == 0:
+    return best
+
+
+def kernel_device_ms(launch, reps: int, kernel: str):
+    """(mean device ms per launch of the CUDA kernel named ``kernel``,
+    launches of it the trace holds) from :func:`kernel_launch_us`; the
+    mean is None when the trace holds no device time of the kernel."""
+    return device_ms(kernel_launch_us(launch, reps, kernel))
+
+
+def device_ms(per_launch_us):
+    """(mean ms, count) of per-launch device µs; (None, 0) for none."""
+    if not per_launch_us:
         return None, 0
-    return sum(e.self_device_time_total for e in hits) / 1e3 / traced, traced
+    return sum(per_launch_us) / 1e3 / len(per_launch_us), len(per_launch_us)
 
 
 def trace_run(run, label: str) -> None:
@@ -1715,6 +1767,356 @@ def serving_trace(ref, lives, lens, perf, device) -> None:
     serve(fms, lives, lens, perf, TRACE_HOPS)
 
 
+def wtw_stream(rng, w: int, hop: int, scenario: str):
+    """(ref (m, 12), live rows, m, n_cap, start (cp, lp, rp)) of one phase 11
+    (a) stream.  "run": a fresh stream that runs windows until the margin
+    stop; "margin": mid-stream, the live capacity puts live_ptr at
+    n_cap-1-w after the first window; "capacity": chroma_ptr one column
+    short of n_cap, w+3 columns ahead of live_ptr, so the second column
+    finds no room."""
+    import numpy as np
+
+    m = 3 * w + hop + 10
+    if scenario == "run":
+        n_cap, cp0, lp0 = 2 * m, 0, 0
+    elif scenario == "margin":
+        n_cap, cp0, lp0 = w + 1 + hop, w - 2, 0
+    else:
+        n_cap = 2 * m
+        cp0 = n_cap - 1
+        lp0 = cp0 - (w + 3)
+    ref = unit_cols(rng.random((12, m)) + 0.05).T
+    path = np.clip(np.cumsum(rng.integers(0, 3, n_cap + 64)) // 2, 0, m - 1)
+    live = unit_cols((ref[path] + 0.1 * rng.random((n_cap + 64, 12))).T).T
+    return np.ascontiguousarray(ref), np.ascontiguousarray(live), m, n_cap, (cp0, lp0, 0)
+
+
+def run_wtw_stream(rng, w: int, hop: int, k: int, scenario: str, device):
+    """One stream through the WTW kernel (on the card) and its plain version
+    (on host copies) launch by launch, every third block ragged, until two
+    frozen launches after the stop; raises unless rows, scalars and live
+    history are EQUAL after every launch.  Returns (launches, windows, max
+    |diff| of the live rows)."""
+    import numpy as np
+    import torch
+
+    from real_time_audio_sync_tpu_torch.ops import wtw_insert
+
+    ref, live, m, n_cap, sc0 = wtw_stream(rng, w, hop, scenario)
+    st = wtw_insert.new_state(torch.from_numpy(ref.T.copy()).to(device), n_cap)
+    st.live[: sc0[0]] = torch.from_numpy(live[: sc0[0]]).to(device)
+    st.scalars[:3] = torch.tensor(sc0, dtype=torch.int32)
+    plain = clone_state(st, "cpu")
+    width = wtw_insert.delta_width(w, hop, k)
+    what = f"phase 11 [w={w} hop={hop} k_block={k} {scenario}]"
+    launches, after_stop, worst = 0, 0, 0.0
+    while after_stop < 2:
+        if launches > 4 * n_cap:
+            raise AssertionError(f"{what}: no stop after {launches} launches")
+        pos = int(plain.scalars[wtw_insert.WS_CHROMA])
+        n_valid = k if launches % 3 != 1 else max(1, k - 2)
+        cols = np.zeros((k, 12), np.float32)
+        take = live[pos : pos + k]
+        cols[: len(take)] = take
+        row = torch.empty(width, dtype=torch.int32, device=device)
+        plain_row = torch.empty(width, dtype=torch.int32)
+        wtw_insert.wtw_insert_block(st, torch.from_numpy(cols).to(device), (m, n_cap, n_valid), w, hop, k, row)
+        wtw_insert.wtw_insert_block_reference(plain, torch.from_numpy(cols), (m, n_cap, n_valid), w, hop, k, plain_row)
+        for name, x, y in (("row", row, plain_row), ("scalars", st.scalars, plain.scalars),
+                           ("live", st.live, plain.live)):
+            x = x.cpu()
+            if not torch.equal(x, y):
+                raise AssertionError(f"{what}: kernel and plain disagree on {name} at launch {launches}")
+        worst = max(worst, float((st.live.cpu() - plain.live).abs().max()))
+        launches += 1
+        after_stop += int(plain.scalars[wtw_insert.WS_FLAGS]) & 1
+    return launches, int(plain.scalars[wtw_insert.WS_PLEN]), worst
+
+
+def phase_wtw_vs_plain(device) -> float:
+    """Phase 11 (a): the WTW kernel against its plain version; returns the
+    largest |diff| (0.0 when equal)."""
+    import numpy as np
+
+    from real_time_audio_sync_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    lib = _build.load("wtw_insert").lib
+    log("phase 11 (a): shared memory a block: " + ", ".join(
+        f"w={w}: {lib.wtw_shared_bytes(w, 12)} B" for w in sorted({w for w, _ in WTW_SHAPES})))
+    worst, streams, launches, points = 0.0, 0, 0, 0
+    for w, hop in WTW_SHAPES:
+        for k in K_BLOCKS:
+            for scenario in WTW_SCENARIOS:
+                rng = np.random.default_rng(11000 + 100 * w + 10 * k + hop + len(scenario))
+                n, p, err = run_wtw_stream(rng, w, hop, k, scenario, device)
+                worst, streams, launches, points = max(worst, err), streams + 1, launches + n, points + p
+    log(f"phase 11 (a): WTW kernel == plain (tolerance 0) over {streams} streams ((w, hop) in {WTW_SHAPES} x "
+        f"k_block in {K_BLOCKS} x {WTW_SCENARIOS}, ragged blocks, 2 frozen launches after each stop), "
+        f"{launches} launches, {points} committed points, max |diff| {worst}, {time.perf_counter() - t0:.1f} s")
+    return worst
+
+
+def wtw_columns(pcm, device):
+    """The live chroma columns (12, T) the WTW engines extract from ``pcm``
+    on ``device`` (each frame in a tile of the same shape)."""
+    import torch
+
+    from real_time_audio_sync_tpu_torch.features.chroma import chroma_frames_tiled, frame_span
+
+    x = torch.from_numpy(pcm.astype("float32")).to(device)
+    t = (len(pcm) - 4096) // 2048 + 1
+    return chroma_frames_tiled(frame_span(x, t, 4096, 2048))
+
+
+def chroma_tile_cost(device, card: str, reps: int = 200) -> None:
+    """CUDA-event ms of one chroma extraction of n frames on the card, alone
+    (``chroma_frames``) and in tiles of CHROMA_TILE frames as the WTW
+    engines extract them (``chroma_frames_tiled``): n = 1 is the host
+    engine's hop, 8 and 32 a fused launch's columns at k_block 8 and 32."""
+    import numpy as np
+    import torch
+
+    from real_time_audio_sync_tpu_torch.features.chroma import CHROMA_TILE, chroma_frames, chroma_frames_tiled
+
+    frames = torch.from_numpy(np.random.default_rng(11).standard_normal((32, 4096), dtype=np.float32)).to(device)
+    for n in (1, 8, 32):
+        times = []
+        for fn in (chroma_frames, chroma_frames_tiled):
+            fn(frames[:n])
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(reps):
+                fn(frames[:n])
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end) / reps)
+        log(f"phase 11 (b) [{card}]: chroma of {n} frame(s) on the card: {times[0]:.4f} ms alone, {times[1]:.4f} ms "
+            f"in tiles of {CHROMA_TILE} (CUDA events, {reps} back to back)")
+
+
+def wtw_bound(w: int, k: int, launches: int, windows: int, width: int):
+    """(bound ms a launch, "bytes" or "operations") over ``launches``
+    launches of k columns that ran ``windows`` windows: bytes are the
+    columns read and their live rows written, each window's two w x 12
+    windows read, the scalars read and written and the row written;
+    operations are each window's w^2 cells of cost (12 multiplies, 12
+    adds, a multiply, a divide, a subtract) and DP (3 multiplies, 3 adds,
+    2 compares) and its 2w norms (24 operations each)."""
+    bytes_ = launches * (2 * k * 48 + 2 * 16 * 4 + width * 4) + windows * 2 * w * 48
+    ops = windows * (w * w * (27 + 8) + 2 * w * 24)
+    t_bytes, t_ops = bytes_ / HBM_BYTES_PER_S * 1e3 / launches, ops / FP32_FLOPS * 1e3 / launches
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_wtw_main_path(device, root: str, card: str):
+    """Phase 11 (b) and (c); returns the kernels-line row of
+    wtw_insert_block (its max_abs_err filled in by the caller)."""
+    import numpy as np
+    import torch
+
+    from real_time_audio_sync_tpu_torch.eval import corpus
+    from real_time_audio_sync_tpu_torch.eval.scorer import PathScorer
+    from real_time_audio_sync_tpu_torch.models import WTW, FusedWTW
+    from real_time_audio_sync_tpu_torch.ops import wavefront, wtw_insert
+    from real_time_audio_sync_tpu_torch.streaming.runtime import WTWFollower
+    from real_time_audio_sync_tpu_torch.utils.wavio import load_wav
+
+    log(card)
+    d = os.path.join(root, "sonata_allegro")
+    ref_wav, live_wav = (os.path.join(d, f"sonata_allegro_0{i}.wav") for i in (0, 1))
+    pcm, fs = load_wav(live_wav)
+    buffers = [pcm[s : s + 2048] for s in range(0, len(pcm), 2048)]
+    audio_s = len(pcm) / fs
+    hops = (len(pcm) - 4096) // 2048 + 1
+
+    # (b) the live app's follower on the card, fed as fast as the host allows
+    follower = WTWFollower(ref_wav, live_wav, LIVE_APP_WTW, engine="wtw_fused", device=device)
+    eng = follower.dtw
+    w, hop, k = eng._w, eng._hop_frames, eng.k_block
+    torch.cuda.synchronize()
+    wtw_insert.launches = 0
+    t0 = time.perf_counter()
+    follow(follower, buffers)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = wtw_insert.launches
+    path = np.asarray(follower.path)
+    pointers = eng.pointers
+    windows = pointers[1] // hop  # each window advances live_ptr by exactly hop_frames
+    if launches == 0 or path.ndim != 2 or len(path) == 0 or not np.isfinite(path).all():
+        raise AssertionError(f"phase 11 (b): {launches} launches, path of shape {path.shape}")
+
+    # the port's host WTW on the card (kernels #7 and #8 a window), fed
+    # 8-column-aligned chunks (tests/test_pallas_wtw.py:29-38) and the rest
+    first, rest = 4096 + 7 * 2048, 8 * 2048
+    cuts = list(range(first, len(pcm), rest))
+    wavefront.dp_launches = 0
+    host = WTW(ref_wav, LIVE_APP_WTW, device=device)
+    for chunk in np.split(pcm, cuts):
+        if host.insert(chunk) == "stop":
+            break
+    if host.path != [tuple(p) for p in path.tolist()] or pointers != (host.chroma_ptr, host.live_ptr, host.ref_ptr):
+        raise AssertionError("phase 11 (b): the fused path differs from the host WTW engine's on the card")
+    log(f"phase 11 (b): path == the host WTW engine on the card ({wavefront.dp_launches} DP launches, "
+        f"{len(np.split(pcm, cuts))} aligned chunks)")
+
+    # the live app's default engine, the host WTW (engine="wtw"), on the
+    # card fed the same buffers: each hop extracts its one frame in a tile
+    # of CHROMA_TILE frames, so its columns, and its path, are the fused one's
+    host_follower = WTWFollower(ref_wav, live_wav, LIVE_APP_WTW, engine="wtw", device=device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    follow(host_follower, buffers)
+    torch.cuda.synchronize()
+    host_wall = time.perf_counter() - t0
+    if not np.array_equal(np.asarray(host_follower.path).reshape(-1, 2), path):
+        raise AssertionError("phase 11 (b): WTWFollower(engine='wtw') on the card differs from the fused follower")
+    log(f"phase 11 (b) [{card}]: WTWFollower(engine='wtw') on the card, the same buffers: wall {host_wall:.3f} s, "
+        f"real-time factor {audio_s / host_wall:.1f}, host {host_wall / hops * 1e6:.1f} us a hop, "
+        f"path == the fused follower's")
+    chroma_tile_cost(device, card)
+
+    # the plain version: a CPU FusedWTW on the card's columns and reference, the first hops
+    cols = wtw_columns(pcm, device)
+
+    class CardColumns(FusedWTW):
+        """FusedWTW on the CPU that takes the card's chroma columns."""
+
+        def _columns(self, n):
+            self.buf.consume(n * self.hop_size)
+            out = torch.zeros((self.k_block, 12))
+            out[:n] = cols[:, self.fed : self.fed + n].T.cpu()
+            self.fed += n
+            return out
+
+    plain = CardColumns(ref_wav, LIVE_APP_WTW, device="cpu")
+    plain.fed = 0
+    plain._state.ref.copy_(eng._state.ref.cpu())
+    t1 = time.perf_counter()
+    for s in range(0, (WTW_PLAIN_HOPS - 1) * 2048 + 4096, 2048):
+        plain.insert(pcm[s : min(s + 2048, (WTW_PLAIN_HOPS - 1) * 2048 + 4096)])
+    plain.flush()
+    plain_path = plain.path_array
+    if len(plain_path) == 0 or not np.array_equal(plain_path, path[: len(plain_path)]):
+        raise AssertionError("phase 11 (b): the card's path does not begin with the CPU plain engine's")
+    log(f"phase 11 (b): the CPU plain engine over the first {WTW_PLAIN_HOPS} hops (a cut; the card ran "
+        f"{hops}): {len(plain_path)} points == the card path's first, {time.perf_counter() - t1:.1f} s")
+
+    # the other payloads on the card, over the same first hops: int16 spans
+    # (exact on this PCM16 audio, so the same path), columns from the host
+    # frontend (another FFT, so near-tie points may move), and "auto"
+    n_samples = (WTW_PLAIN_HOPS - 1) * 2048 + 4096
+    for mode in ("int16", "chroma", "auto"):
+        other = FusedWTW(ref_wav, LIVE_APP_WTW, transfer_dtype=mode, device=device)
+        for s in range(0, n_samples, 2048):
+            other.insert(pcm[s : min(s + 2048, n_samples)])
+        other.flush()
+        got = other.path_array
+        n = min(len(got), len(path))
+        moved = int((got[:n] != path[:n]).any(axis=1).sum())
+        if len(got) == 0 or (other.transfer_dtype in ("float32", "int16") and not np.array_equal(got, path[:len(got)])):
+            raise AssertionError(f"phase 11 (b): transfer_dtype={mode!r} ({other.transfer_dtype}) changed the path")
+        log(f"phase 11 (b): transfer_dtype={mode!r} (resolved: {other.transfer_dtype}) over the first "
+            f"{WTW_PLAIN_HOPS} hops: {len(got)} points, {moved} of the first {n} differ from the float32 path")
+
+    score = PathScorer.for_pair(ref_wav, live_wav).score(follower.path)
+    log(f"phase 11 (b) [{card}]: WTWFollower(engine='wtw_fused', w={w}, hop={hop}, k_block={k}) on "
+        f"sonata_allegro _01 ({hops} hops, {audio_s:.1f} s) vs _00 ({eng.M} frames): wall {wall:.3f} s, "
+        f"real-time factor {audio_s / wall:.1f}, host {wall / hops * 1e6:.1f} us a hop, {launches} launches, "
+        f"{windows} windows, {len(path)} points, stopped={follower.stopped}")
+    log(f"phase 11 (b): PathScorer count={score.count} pct_off_beats={score.pct_off_beats} "
+        f"pct_off_secs={score.pct_off_secs}")
+
+    # the kernel's time at the main path's shapes: its first launches replayed
+    reps = WTW_TIMED_LAUNCHES
+    blocks = [cols[:, r * k : (r + 1) * k].T.contiguous() for r in range(reps)]
+    width = wtw_insert.delta_width(w, hop, k)
+    rows = torch.empty((reps, width), dtype=torch.int32, device=device)
+    lens = (eng.M, eng.N, k)
+
+    def fresh():
+        return wtw_insert.new_state(eng.chroma_ref, eng.N)
+
+    def replay(st, r):
+        wtw_insert.wtw_insert_block(st, blocks[r], lens, w, hop, k, rows[r])
+
+    warm = fresh()
+    for r in range(reps):
+        replay(warm, r)
+    timed = fresh()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for r in range(reps):
+        replay(timed, r)
+    end.record()
+    torch.cuda.synchronize()
+    event_ms = start.elapsed_time(end) / reps
+    traced = fresh()
+
+    def traced_launch(r):
+        nonlocal traced
+        if r == 0:  # each trace replays the same launches from a fresh state
+            traced = fresh()
+        replay(traced, r)
+
+    per_launch = kernel_launch_us(traced_launch, reps, "wtw_insert_kernel")
+    dev_ms, n_traced = device_ms(per_launch)
+    # launch by launch, from a complete trace: those that ran a window (the
+    # row's plen moved) and those that only appended
+    plens = [0] + rows[:, 1].tolist()
+    window_ms = idle_ms = None
+    if len(per_launch) == reps:
+        ran = [plens[r + 1] > plens[r] for r in range(reps)]
+        window_ms = sum(t for t, x in zip(per_launch, ran) if x) / 1e3 / max(1, sum(ran))
+        idle_ms = sum(t for t, x in zip(per_launch, ran) if not x) / 1e3 / max(1, reps - sum(ran))
+    if not torch.equal(timed.scalars, warm.scalars):
+        raise AssertionError("phase 11 (b): replays of the same launches disagree")
+    host_state = clone_state(fresh(), "cpu")
+    host_blocks = [b.cpu() for b in blocks]
+    host_row = torch.empty(width, dtype=torch.int32)
+    t2 = time.perf_counter()
+    for r in range(reps):
+        wtw_insert.wtw_insert_block_reference(host_state, host_blocks[r], lens, w, hop, k, host_row)
+    plain_ms = (time.perf_counter() - t2) * 1e3 / reps
+    if not torch.equal(host_state.scalars, warm.scalars.cpu()):
+        raise AssertionError("phase 11 (b): plain and kernel disagree over the timed launches")
+    timed_windows = int(warm.scalars[wtw_insert.WS_LIVE]) // hop
+    bound_ms, bound_by = wtw_bound(w, k, reps, timed_windows, width)
+    log(f"phase 11 (b) [{card}]: launches that ran a window "
+        f"{'not measured' if window_ms is None else f'{window_ms:.4f} ms'}, launches that only appended "
+        f"{'not measured' if idle_ms is None else f'{idle_ms:.4f} ms'} (profiler, device time, launch by launch)")
+    log(f"phase 11 (b) [{card}]: kernel {'not measured' if dev_ms is None else f'{dev_ms:.4f} ms'} device time "
+        f"a launch (profiler, {n_traced} of {reps} launches traced), {event_ms:.4f} ms (CUDA events, back to "
+        f"back); plain {plain_ms:.3f} ms a launch (host copies); {timed_windows} windows in those {reps} "
+        f"launches; bound {bound_ms:.7f} ms a launch by {bound_by}; chain a window: {2 * w - 1} dependent "
+        f"diagonals (a block barrier each) and up to {2 * w - 1} backtrack steps on one thread")
+    fresh_follower = WTWFollower(ref_wav, live_wav, LIVE_APP_WTW, engine="wtw_fused", device=device)
+    trace_run(lambda: follow(fresh_follower, buffers[:WTW_TRACE_BUFFERS]), "phase 11 (b) [trace]")
+
+    # (c) the harness's widths: the piece's three pairs through align_pair
+    log(card)
+    pairs = [p for p in corpus.corpus_pairs(root) if os.path.dirname(p[0]) == d]
+    for ref_p, live_p in pairs:
+        wtw_insert.launches = 0
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        fused = corpus.align_pair(ref_p, live_p, "wtw", mode="fused", device=device)
+        torch.cuda.synchronize()
+        pair_wall = time.perf_counter() - t3
+        n_fused = wtw_insert.launches
+        oracle = corpus.align_pair(ref_p, live_p, "wtw", mode="oracle", device=device)
+        if n_fused == 0 or not np.array_equal(fused.path, oracle.path):
+            raise AssertionError(f"phase 11 (c): {os.path.basename(ref_p)} vs {os.path.basename(live_p)}: "
+                                 f"fused ({n_fused} launches) and oracle paths differ")
+        s = fused.score
+        log(f"phase 11 (c) [{card}]: {os.path.basename(ref_p)} vs {os.path.basename(live_p)}: align_pair(wtw, "
+            f"fused) wall {pair_wall:.3f} s, {n_fused} launches, {len(fused.path)} points == oracle; "
+            f"pct_off_beats={s.pct_off_beats} pct_off_secs={s.pct_off_secs}")
+    return (launches, None, dev_ms, event_ms, plain_ms, bound_ms, bound_by), {
+        "windows": windows, "window_ms": window_ms, "append_only_ms": idle_ms}
+
+
 def otw_insert_bound_ms(c: int = PARAMS["c"], k: int = 8, f: int = 12) -> float:
     """Bytes of one k_block-k launch at band c over the memory rate: the
     window in and out, the k columns in and live rows out, the k + c + 1
@@ -1770,6 +2172,18 @@ def main() -> int:
         phase_multi_vs_plain(device)
         serving = phase_serving(device, root, concert_wavs, concert_cols)
         log(f"phase 10: {time.perf_counter() - t10:.1f} s in all")
+        t11 = time.perf_counter()
+        log(card)
+        wtw_err = phase_wtw_vs_plain(device)
+        with warnings.catch_warnings():
+            # WTWLongReferenceWarning tells a user that WTW was validated on
+            # excerpts of about 35 s; the live app's main path here runs on
+            # a 4.8-minute reference on purpose, for the kernel's real sizes
+            from real_time_audio_sync_tpu_torch.models.wtw import WTWLongReferenceWarning
+
+            warnings.simplefilter("ignore", WTWLongReferenceWarning)
+            wtw_row, wtw_extra = phase_wtw_main_path(device, root, card)
+        log(f"phase 11: {time.perf_counter() - t11:.1f} s in all")
 
     # "ms" is each kernel's device time per launch (profiler; the CUDA-event
     # time when the trace holds none); otw_insert_block's at k_block 8,
@@ -1780,6 +2194,7 @@ def main() -> int:
     rows.update(sl)
     rows["otw_insert_block_long"] = concert
     rows.update(serving)
+    rows["wtw_insert_block"] = wtw_row[:1] + (wtw_err,) + wtw_row[2:]
     kernels = []
     for name, (n_launch, err, d_ms, e_ms, p_ms, b_ms, b_by) in rows.items():
         _, source, replaces = KERNELS[name]
@@ -1793,7 +2208,10 @@ def main() -> int:
         })
         if name in serving:  # the grid: B streams a launch; the plain version timed at a small batch
             kernels[-1].update(batch=SERVING_STREAMS, plain_batch=MULTI_PLAIN_BATCH)
+        if name == "wtw_insert_block":  # the main path's windows, and the device time of the two kinds of launch
+            kernels[-1].update(wtw_extra)
     log(f"total {time.perf_counter() - t_start:.1f} s")
+    log(card)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                               "count": torch.cuda.device_count()}}), flush=True)

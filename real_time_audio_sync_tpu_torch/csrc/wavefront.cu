@@ -29,30 +29,23 @@
 //   the int8 codes directly (the TPU's int32 widening is a Mosaic limit),
 //   and writes the frozen (0, 0) repeats after the origin without loads.
 //
-// Numerics: each candidate is nb + w*c with explicit round-to-nearest
-// intrinsics (built with --fmad=false as well), compared with strict <, so
-// ties keep the first candidate as np.argmin does.  IEEE infinities mark the
-// cells outside the matrix, so no fast-math.  Offsets are 64-bit.
+// Numerics: each cell is wavefront_step.cuh's first_min (nb + w*c with
+// explicit round-to-nearest intrinsics, strict <, IEEE infinities outside
+// the matrix), shared with the streaming WTW kernel.  Offsets are 64-bit.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "wavefront_step.cuh"
+
 namespace {
 
+using wavefront_step::first_min;
+using wavefront_step::Spec;
+using wavefront_step::Table;
+
 constexpr int DP_THREADS = 1024;
-
-struct Spec {
-  int kind[3];      // per candidate: 0 left, 1 up, 2 diagonal
-  double w[3];      // per candidate: weight of the cell cost
-  int code[3];      // per candidate: back code
-  int corner;       // back code of (0, 0)
-};
-
-__device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
-__device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
-__device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
-__device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
 
 template <typename T>
 __global__ void __launch_bounds__(DP_THREADS)
@@ -76,23 +69,13 @@ wavefront_dp_kernel(const T* __restrict__ cost, T* acc, int8_t* __restrict__ bac
       const T left = j > 0 ? acc[idx - 1] : inf;
       const T up = i > 0 ? acc[idx - n] : inf;
       const T dg = i > 0 && j > 0 ? acc[idx - n - 1] : inf;
-      auto nb = [&](int kind) { return kind == 0 ? left : (kind == 1 ? up : dg); };
-      T best = add_rn(nb(spec.kind[0]), mul_rn(w0, c));
-      int code = spec.code[0];
-      const T c1 = add_rn(nb(spec.kind[1]), mul_rn(w1, c));
-      if (c1 < best) { best = c1; code = spec.code[1]; }
-      const T c2 = add_rn(nb(spec.kind[2]), mul_rn(w2, c));
-      if (c2 < best) { best = c2; code = spec.code[2]; }
-      acc[idx] = best;
+      int code;
+      acc[idx] = first_min(left, up, dg, c, spec, w0, w1, w2, &code);
       back[idx] = static_cast<int8_t>(code);
     }
     __syncthreads();  // diagonal d is written before d + 1 reads it
   }
 }
-
-struct Table {
-  int di[4], dj[4];  // step of each back code 0..3
-};
 
 __global__ void wavefront_backtrack_kernel(const int8_t* __restrict__ back, int* __restrict__ points,
                                            int* __restrict__ length_out, long long m, long long n,

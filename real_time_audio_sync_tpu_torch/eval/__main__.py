@@ -15,8 +15,9 @@ Examples::
     # score a recorded field log against ground-truth CSVs
     python -m real_time_audio_sync_tpu_torch.eval --score-log tests/x.txt --ref-csv a.csv --live-csv b.csv
 
-Ported so far: ``--engine dtw`` (the default) and, with ``--mode fused``,
-the online engines otw, livenote, livenote_v2 and livenote_v2_diff; the
+Ported so far: ``--engine dtw`` (the default); with ``--mode fused`` the
+online engines otw, livenote, livenote_v2 and livenote_v2_diff; and for
+one pair ``--engine wtw`` with ``--mode fused`` or ``--mode oracle``; the
 rest raise ``NotImplementedError`` naming their ROADMAP.md item.
 """
 

@@ -11,12 +11,15 @@ when one is given (tests.py:245-251).  Pairs with missing audio are
 reported and skipped.
 
 Ported so far: ``engine="dtw"`` (offline DTW, the wavefront kernels on a
-CUDA device) and ``mode="fused"`` of the online engines (otw, livenote,
+CUDA device), ``mode="fused"`` of the online engines (otw, livenote,
 livenote_v2, livenote_v2_diff: whole-pair set_live, the set_live kernel on
 a CUDA device; a corpus sweep of two or more pairs is one batched
-launch).  The online engines' streaming insert mode (Queue 1 item 1) and
-WTW (item 7) raise ``NotImplementedError`` naming their ROADMAP.md item;
-the WTW defaults and the raw-audio memo kind arrive with WTW.
+launch), and ``engine="wtw"`` in ``align_pair`` with modes "fused" (the
+fused WTW kernel) and "oracle" (the host ``WTW``).  What is not ported yet
+raises ``NotImplementedError`` naming its ROADMAP.md item: the online
+engines' streaming insert mode (Queue 1 item 1), WTW's insert mode and its
+fused mode above 128-frame windows (both ``AsyncWTW``, item 7c), and WTW
+corpus sweeps (items 7b and 7c).
 """
 
 from __future__ import annotations
@@ -36,34 +39,64 @@ from real_time_audio_sync_tpu_torch.features.chroma import wav_to_chroma, wav_to
 from real_time_audio_sync_tpu_torch.models.dtw import _DENSE_BYTES_PER_CELL, _dense_limit_bytes, dtw_auto, dtw_device
 from real_time_audio_sync_tpu_torch.models.online_core import ENGINE_OVERRIDES
 from real_time_audio_sync_tpu_torch.ops.otw_set_live import pallas_batched_set_live, pallas_set_live
+from real_time_audio_sync_tpu_torch.utils.wavio import load_wav
 
 DEFAULT_PARAMS = {"search_band_width": 50, "max_run_count": 3}  # tests.py:140
+DEFAULT_WTW_PARAMS = {  # tests.py:174
+    "fft_len": 4096,
+    "hop_size": 2048,
+    "dtw_win_size": 4096 * 10,
+    "dtw_hop_size": 2048 * 10,
+}
 
 ENGINES = ("dtw", "otw", "livenote", "livenote_v2", "livenote_v2_diff", "wtw")
 PORTED_ENGINES = ("dtw",)
 
 # Feature memo for corpus sweeps: each recording appears in up to |recs|−1
 # pairs of a sweep and in every engine of it.  Keyed by (path, mtime, kind,
-# dtype, device), kind "chroma" or "chroma_diff"; LRU oldest-first
-# eviction.
-_FEAT_CACHE: "OrderedDict[tuple, torch.Tensor]" = OrderedDict()
+# dtype, device), kind "chroma" or "chroma_diff" (tensors on the device) or
+# "audio" (the raw samples WTW streams, a host array); LRU oldest-first
+# eviction, with the 8-30 MB raw-audio entries capped apart from the
+# ~200 KB feature entries (the JAX package's eval/corpus.py:32-63).
+_FEAT_CACHE: "OrderedDict[tuple, object]" = OrderedDict()
 _FEAT_CACHE_MAX = 64
+_FEAT_CACHE_AUDIO_MAX = 12  # raw-audio entries only
+
+
+def _cache_insert(key: tuple, value) -> None:
+    if key[2] == "audio":
+        audio_keys = [k for k in _FEAT_CACHE if k[2] == "audio"]
+        for k in audio_keys[: max(0, len(audio_keys) + 1 - _FEAT_CACHE_AUDIO_MAX)]:
+            del _FEAT_CACHE[k]
+    while len(_FEAT_CACHE) >= _FEAT_CACHE_MAX:
+        _FEAT_CACHE.popitem(last=False)  # oldest-first
+    _FEAT_CACHE[key] = value
+
+
+def _cached(kind: str, path: str, dtype, device):
+    """``path``'s memoised features: the (12, T) chroma or (12, T-1)
+    chroma-diff tensor on ``device``, or for kind "audio" its 22.05 kHz
+    samples as a host array (``device`` unused)."""
+    device = "host" if kind == "audio" else torch.device(device)
+    key = (os.path.abspath(path), os.path.getmtime(path), kind, np.dtype(dtype).name, str(device))
+    if key in _FEAT_CACHE:
+        _FEAT_CACHE.move_to_end(key)  # refresh recency
+        return _FEAT_CACHE[key]
+    if kind == "audio":
+        wav, fs = load_wav(path)
+        assert fs == 22050
+        value = np.asarray(wav, dtype)
+    else:
+        extract = {"chroma": wav_to_chroma, "chroma_diff": wav_to_chroma_diff}[kind]
+        value = extract(path, dtype=torch.from_numpy(np.zeros(0, dtype)).dtype, device=device)
+    _cache_insert(key, value)
+    return value
 
 
 def _cached_chroma(path: str, dtype, device, kind: str = "chroma") -> torch.Tensor:
     """The (12, T) chroma, or (12, T-1) chroma-diff, tensor of ``path`` on
     ``device``, memoised."""
-    device = torch.device(device)
-    key = (os.path.abspath(path), os.path.getmtime(path), kind, np.dtype(dtype).name, str(device))
-    if key in _FEAT_CACHE:
-        _FEAT_CACHE.move_to_end(key)  # refresh recency
-        return _FEAT_CACHE[key]
-    extract = {"chroma": wav_to_chroma, "chroma_diff": wav_to_chroma_diff}[kind]
-    value = extract(path, dtype=torch.from_numpy(np.zeros(0, dtype)).dtype, device=device)
-    while len(_FEAT_CACHE) >= _FEAT_CACHE_MAX:
-        _FEAT_CACHE.popitem(last=False)  # oldest-first
-    _FEAT_CACHE[key] = value
-    return value
+    return _cached(kind, path, dtype, device)
 
 
 def _feature_kind(engine: str) -> str:
@@ -101,9 +134,13 @@ def align_pair(
     (chroma-diff features for ``livenote_v2_diff``), band ``params`` or
     :data:`DEFAULT_PARAMS` — the fast path for corpus sweeps; set_live's
     direction-first loop can commit slightly different best points than
-    streaming insert, as in the reference.  Argument checks are the JAX
-    package's; the engines and modes not ported yet raise
-    ``NotImplementedError``."""
+    streaming insert, as in the reference.  ``engine="wtw"`` streams the
+    live recording's samples in ``np.array_split(live, 4096)`` chunks (the
+    harness's quirk, tests.py:186) through :class:`FusedWTW` (``mode=
+    "fused"``, k_block 8) or the host :class:`WTW` (``mode="oracle"``, the
+    parity oracle), with ``params`` or :data:`DEFAULT_WTW_PARAMS`.
+    Argument checks are the JAX package's; the engines and modes not ported
+    yet raise ``NotImplementedError``."""
     if engine not in ENGINES:
         raise ValueError(f"unknown engine {engine!r}; choose from {ENGINES}")
     if mode not in ("insert", "fused", "oracle"):
@@ -118,7 +155,9 @@ def align_pair(
             raise ValueError("mode='fused' runs the float32 device backends; use dtype=float32 "
                              "(the insert mode supports float64)")
     if engine == "wtw":
-        raise NotImplementedError("align_pair(engine='wtw'): WTW is not ported yet: ROADMAP.md Queue 1, item 7")
+        path = _wtw_path(ref_wav, live_wav, params or DEFAULT_WTW_PARAMS, dtype, mode, device)
+        score = PathScorer.for_pair(ref_wav, live_wav).score(path)
+        return PairResult(ref_wav, live_wav, engine, np.asarray(path), score)
     if engine != "dtw" and mode != "fused":
         raise NotImplementedError(
             f"align_pair({engine!r}): the online engines' streaming insert mode is not ported yet: "
@@ -139,6 +178,32 @@ def align_pair(
         path = points[: int(length)].flip(0).cpu().numpy()
     score = PathScorer.for_pair(ref_wav, live_wav).score(path)
     return PairResult(ref_wav, live_wav, engine, np.asarray(path), score)
+
+
+def _wtw_path(ref_wav: str, live_wav: str, params, dtype, mode: str, device):
+    """The committed WTW path of one pair (the JAX package's
+    eval/corpus.py:137-170): the live samples in 4096 chunks through the
+    engine of ``mode``."""
+    from real_time_audio_sync_tpu_torch.config import WTWParams
+    from real_time_audio_sync_tpu_torch.models import WTW, FusedWTW
+    from real_time_audio_sync_tpu_torch.ops.wtw_insert import MAX_W
+
+    wp = WTWParams.from_any(params)
+    if mode == "insert" or wp.dtw_win_size // wp.hop_size > MAX_W:
+        raise NotImplementedError(
+            f"align_pair(engine='wtw', mode={mode!r}) at a {wp.dtw_win_size // wp.hop_size}-frame window runs "
+            "AsyncWTW, which is not ported yet: ROADMAP.md Queue 1, item 7c")
+    if mode == "oracle":
+        wtw = WTW(ref_wav, params, dtype=dtype, device=device)
+    else:
+        wtw = FusedWTW(ref_wav, params, k_block=8, device=device)
+    live = _cached("audio", live_wav, np.float64, device)
+    for buf in np.array_split(live, 4096):  # tests.py:186
+        if wtw.insert(buf) == "stop":
+            break
+    if mode != "oracle":
+        wtw.flush()
+    return wtw.path
 
 
 def corpus_pairs(recordings_dir: str) -> List[Tuple[str, str]]:
@@ -186,6 +251,10 @@ class CorpusRunner:
 
     def __init__(self, recordings_dir: str, engine: str = "dtw", params: Optional[dict] = None,
                  dtype=np.float32, mode: str = "insert", *, device="cuda"):
+        if engine == "wtw":
+            raise NotImplementedError(
+                "CorpusRunner(engine='wtw'): WTW corpus sweeps are not ported yet: the batched fused sweep "
+                "is ROADMAP.md Queue 1, item 7b, the insert mode (AsyncWTW) item 7c")
         self.recordings_dir = recordings_dir
         self.engine = engine
         self.params = params

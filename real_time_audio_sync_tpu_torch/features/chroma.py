@@ -10,9 +10,18 @@ half-frame blocks per frame) and the real DFT is two dense matmuls against
 precomputed cos/sin factors, followed by the filterbank matmul — plain
 ``torch.matmul`` in float32 with TF32 off (:mod:`..numerics`).  Results
 live on the device of the input tensor.
+
+The host frontend (:func:`host_chroma_frames`, numpy and scipy only) is a
+copy of the JAX package's (``features/chroma.py:70-292``): the WTW engines'
+``transfer_dtype="chroma"`` extracts columns on the host with it and ships
+12 floats a column instead of the raw samples.  It gives the JAX package's
+bits on the same frames (``tests/test_torch_copies.py``).
 """
 
 from __future__ import annotations
+
+import os
+import threading
 
 import numpy as np
 import torch
@@ -65,6 +74,137 @@ def frontend_constants(n_fft: int = FFT_LEN, fs: int = FS, dtype=torch.float32, 
     return _CONST_CACHE[key]
 
 
+_HOST_CONST_CACHE: dict = {}
+
+
+def host_frontend_constants(n_fft: int = FFT_LEN, fs: int = FS, dtype=np.float32):
+    """(hann, filterbank_T) as host numpy arrays — the host twin of
+    :func:`frontend_constants`; the DFT runs as an FFT on the host, so no
+    DFT factors are made."""
+    key = (n_fft, fs, np.dtype(dtype).name)
+    if key not in _HOST_CONST_CACHE:
+        _HOST_CONST_CACHE[key] = (
+            hann_window(n_fft).astype(dtype),
+            np.ascontiguousarray(chroma_filterbank(fs, n_fft).T).astype(dtype),
+        )
+    return _HOST_CONST_CACHE[key]
+
+
+_HOST_FB2_CACHE: dict = {}
+
+
+def _host_fb_interleaved(n_fft: int, fs: int) -> np.ndarray:
+    """(2K, 12) float32 filterbank with each row doubled, matching the
+    re, im interleaving of a complex64 buffer viewed as float32, so
+    ``v² @ fb2`` projects the power spectrum straight from the squared
+    components (the float32 path of :func:`host_chroma_frames`)."""
+    key = (n_fft, fs)
+    if key not in _HOST_FB2_CACHE:
+        _, fb_t = host_frontend_constants(n_fft, fs, np.float32)
+        _HOST_FB2_CACHE[key] = np.ascontiguousarray(np.repeat(fb_t, 2, axis=0))
+    return _HOST_FB2_CACHE[key]
+
+
+#: worker threads of the float32 host extraction: an explicit argument,
+#: else this environment variable, else one
+_WORKERS_ENV = "RTAS_HOST_FFT_WORKERS"
+_POOL = None
+_POOL_SIZE = 0
+_POOL_LOCK = threading.Lock()
+
+
+def _host_pool(workers: int):
+    """The shared thread pool, grown (never shrunk) under a lock.  An old
+    pool is not shut down on a resize: a caller that took it just before
+    the swap may still submit to it."""
+    global _POOL, _POOL_SIZE
+    with _POOL_LOCK:
+        if _POOL is None or workers > _POOL_SIZE:
+            import concurrent.futures
+
+            _POOL = concurrent.futures.ThreadPoolExecutor(max_workers=workers, thread_name_prefix="rtas-hostfft")
+            _POOL_SIZE = workers
+        return _POOL
+
+
+def resolve_host_workers(workers=None) -> int:
+    """Worker count: the explicit argument, else ``RTAS_HOST_FFT_WORKERS``,
+    else 1; a malformed variable warns and gives 1."""
+    if workers is not None:
+        return max(1, int(workers))
+    env = os.environ.get(_WORKERS_ENV)
+    if not env:
+        return 1
+    try:
+        return max(1, int(env))
+    except ValueError:
+        import warnings
+
+        warnings.warn(f"ignoring malformed {_WORKERS_ENV}={env!r} (expected an integer); running single-threaded")
+        return 1
+
+
+def host_chroma_frames(frames: np.ndarray, n_fft: int = FFT_LEN, fs: int = FS, normalize: bool = True,
+                       overwrite_frames: bool = False, workers=None) -> np.ndarray:
+    """(T, n_fft) raw frames → (12, T) chroma, on the host.
+
+    The pipeline of :func:`chroma_frames` (window → real DFT → power →
+    filterbank → L2 normalise) with the DFT as an FFT on the host; host and
+    card differ in low-order float32 bits (about 1e-6).  Float32 frames go
+    through ``scipy.fft`` in cache-blocked chunks of about 1 MB (window,
+    FFT, square the complex64 buffer in place as float32 pairs, project
+    through :func:`_host_fb_interleaved`), optionally over ``workers``
+    threads that take the same chunks, so the result does not depend on
+    the worker count.  Float64 frames keep ``np.fft.rfft`` and the explicit
+    power spectrum.  ``overwrite_frames`` lets the float64 window multiply
+    run in place (never for overlapping strided views)."""
+    dtype = np.dtype(frames.dtype)
+    win, fb_t = host_frontend_constants(n_fft, fs, dtype)
+    if dtype == np.float32:
+        from scipy import fft as sfft
+
+        t = frames.shape[0]
+        chunk = max(1, min(t or 1, (1 << 20) // (4 * n_fft)))  # ~1 MB
+        fbi = _host_fb_interleaved(n_fft, fs)
+        raw = np.empty((t, 12), np.float32)
+        n_workers = min(resolve_host_workers(workers), max(1, -(-t // chunk)))
+
+        def sweep(lo: int, hi: int, buf: np.ndarray, fft_workers: int) -> None:
+            for i in range(lo, hi, chunk):
+                j = min(i + chunk, t)
+                b = buf[: j - i]
+                np.multiply(frames[i:j], win, out=b)
+                spec = sfft.rfft(b, axis=1, overwrite_x=True, workers=fft_workers)
+                v = spec.view(np.float32)  # (chunk, 2K) re, im pairs
+                np.multiply(v, v, out=v)
+                np.matmul(v, fbi, out=raw[i:j])
+
+        if n_workers <= 1:  # the FFT's own threads split the rows
+            sweep(0, t, np.empty((chunk, n_fft), np.float32), os.cpu_count() or 1)
+        else:  # whole chunks per worker: the same chunk boundaries, the same bits
+            n_chunks = -(-t // chunk)
+            per = -(-n_chunks // n_workers)
+            pool = _host_pool(n_workers)
+            futs = [pool.submit(sweep, w * per * chunk, min((w + 1) * per * chunk, t),
+                                np.empty((chunk, n_fft), np.float32), 1)
+                    for w in range(n_workers) if w * per * chunk < t]
+            for f in futs:
+                f.result()
+    else:
+        if overwrite_frames and frames.flags.writeable:
+            wf = np.multiply(frames, win, out=frames)
+        else:
+            wf = frames * win[None, :]
+        spec = np.fft.rfft(wf, axis=1)
+        power = spec.real.astype(dtype) ** 2 + spec.imag.astype(dtype) ** 2
+        raw = power @ fb_t  # (T, 12)
+    if normalize:
+        norm = np.sqrt(np.sum(raw * raw, axis=1, keepdims=True))
+        tiny = np.finfo(dtype).tiny
+        raw = raw / np.where(norm < tiny, np.ones_like(norm), norm)
+    return np.ascontiguousarray(raw.T)
+
+
 def num_frames(n_samples: int, n_fft: int = FFT_LEN, hop: int = HOP_SIZE) -> int:
     """Frame count of the reference STFT (chroma.py:49-54): the wav is
     left-padded with ``n_fft/2`` zeros, then ``int(((N - L)/H) + 1)`` hops
@@ -88,6 +228,29 @@ def chroma_frames(frames: torch.Tensor, n_fft: int = FFT_LEN, fs: int = FS, norm
         tiny = torch.finfo(frames.dtype).tiny
         raw = raw / torch.where(norm < tiny, torch.ones_like(norm), norm)
     return raw.T
+
+
+#: frames of one tile of :func:`chroma_frames_tiled`
+CHROMA_TILE = 8
+
+
+def chroma_frames_tiled(frames: torch.Tensor, n_fft: int = FFT_LEN, fs: int = FS) -> torch.Tensor:
+    """:func:`chroma_frames` over tiles of exactly ``CHROMA_TILE`` frames (the
+    last one zero-padded), so that a frame's column does not depend on how
+    many frames were extracted with it.  A float32 matrix product rounds
+    according to its shape (one frame alone takes a matrix-vector path, for
+    instance, and its column can differ in the last bits from the same
+    frame's column in a batch); in products of one shape each row is the
+    same sequence of operations on its own frame.  The WTW engines extract
+    their live columns this way, so the host engine, fed a few samples at a
+    time, and the fused engine, a block of ``k_block`` columns at a time,
+    see the same columns."""
+    t = frames.shape[0]
+    pad = -t % CHROMA_TILE
+    if pad:
+        frames = torch.cat([frames, frames.new_zeros((pad, frames.shape[1]))])
+    cols = [chroma_frames(frames[i : i + CHROMA_TILE], n_fft, fs) for i in range(0, t + pad, CHROMA_TILE)]
+    return torch.cat(cols, dim=1)[:, :t]
 
 
 def frame_span(x: torch.Tensor, t: int, n_fft: int, hop: int) -> torch.Tensor:

@@ -1,4 +1,7 @@
-"""Alignment engines: the fused streaming OTW/LiveNote/LiveNoteV2 engine (``fused_streaming``), their shared core (``online_core``) and offline DTW (``dtw``)."""
+"""Alignment engines: the fused streaming OTW/LiveNote/LiveNoteV2 engine
+(``fused_streaming``), their shared core (``online_core``), offline DTW
+(``dtw``), and windowed time warping — the host engine (``wtw``) and the
+fused one (``fused_wtw``)."""
 
 from real_time_audio_sync_tpu_torch.models.dtw import DTW, dtw_auto  # noqa: F401
 from real_time_audio_sync_tpu_torch.models.fused_streaming import (  # noqa: F401
@@ -6,3 +9,5 @@ from real_time_audio_sync_tpu_torch.models.fused_streaming import (  # noqa: F40
     fold_delta_tail,
     iter_delta_rows,
 )
+from real_time_audio_sync_tpu_torch.models.fused_wtw import FusedWTW  # noqa: F401
+from real_time_audio_sync_tpu_torch.models.wtw import WTW  # noqa: F401

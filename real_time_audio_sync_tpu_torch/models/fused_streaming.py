@@ -82,6 +82,24 @@ def iter_delta_rows(deltas: list):
     deltas.clear()
 
 
+def drain_delta_rows(deltas: list, host_px: list, host_py: list, drained_plen: int) -> int:
+    """Append every pending launch's committed points (rows ``[status | dx
+    | dy]``, in dispatch order) to the host path's ``host_px``/``host_py``
+    chunks and return the path length drained (waits for the device).  A
+    launch that committed nothing — LiveNoteV2's guard, a frozen post-stop
+    launch — carries ``plen_end == drained_plen`` and adds nothing."""
+    for rows in iter_delta_rows(deltas):
+        d_pad = (rows.shape[-1] - N_STATUS) // 2
+        for row in rows:
+            plen_end = int(row[1])
+            n_new = plen_end - drained_plen
+            if n_new > 0:
+                host_px.append(row[N_STATUS : N_STATUS + n_new].astype(np.int32))
+                host_py.append(row[N_STATUS + d_pad : N_STATUS + d_pad + n_new].astype(np.int32))
+                drained_plen = plen_end
+    return drained_plen
+
+
 def _column_copy(col, device: torch.device) -> torch.Tensor:
     """A float32 copy of one column on ``device`` — never a view of the
     caller's buffer, which the caller may reuse while the column is queued."""
@@ -97,12 +115,14 @@ class FusedStreamingEngine(StatusPolling):
     launches the hand-written kernel, ``"cpu"`` runs its plain version.
     ``long_ref`` picks the layout (module docstring); None means
     ``n >= _LONG_REF_THRESHOLD``.  The positional order is the JAX
-    engine's; ``interpret`` (its Pallas interpret switch) is accepted and
-    ignored: the device decides."""
+    engine's; ``interpret`` (its Pallas interpret switch) is recorded and
+    otherwise ignored: the device decides."""
+
+    dtype = np.dtype(np.float32)  # the kernel is float32-only, as in the JAX engine
 
     def __init__(self, ref, params, cfg_overrides: Optional[dict] = None, k_block: int = 8,
                  interpret: bool = False, long_ref: Optional[bool] = None, *, device="cuda"):
-        del interpret  # the tensors' device decides
+        self.interpret = bool(interpret)  # recorded, as in the JAX engine; the tensors' device decides
         p = OTWParams.from_any(params)
         over = dict(ENGINE_OVERRIDES["otw"])
         over.update(cfg_overrides or {})
@@ -194,18 +214,8 @@ class FusedStreamingEngine(StatusPolling):
 
     def _drain_deltas(self) -> None:
         """Accumulate every pending launch's committed points into the host
-        path (waits for in-flight launches).  A launch that committed
-        nothing — LiveNoteV2's guard, a frozen post-stop launch — carries
-        ``plen_end == drained_plen`` and adds nothing."""
-        for rows in iter_delta_rows(self._deltas):
-            d_pad = (rows.shape[-1] - N_STATUS) // 2
-            for row in rows:
-                plen_end = int(row[1])
-                n_new = plen_end - self._drained_plen
-                if n_new > 0:
-                    self._host_px.append(row[N_STATUS : N_STATUS + n_new].astype(np.int32))
-                    self._host_py.append(row[N_STATUS + d_pad : N_STATUS + d_pad + n_new].astype(np.int32))
-                    self._drained_plen = plen_end
+        path (waits for in-flight launches)."""
+        self._drained_plen = drain_delta_rows(self._deltas, self._host_px, self._host_py, self._drained_plen)
 
     def _dispatch_pending(self) -> None:
         pend = self._pending

@@ -55,6 +55,11 @@ SIGNATURES = {
         "wavefront_backtrack": ([_P] * 3 + [_L] * 2 + [_I] * 8 + [_P], ctypes.c_int),
         "wavefront_error_string": ([_I], ctypes.c_char_p),
     },
+    "wtw_insert": {
+        "wtw_insert_block": ([_P] * 5 + [_I] * 10 + [ctypes.c_double] * 3 + [_I] * 12 + [_P], ctypes.c_int),
+        "wtw_shared_bytes": ([_I, _I], ctypes.c_int),
+        "wtw_error_string": ([_I], ctypes.c_char_p),
+    },
 }
 
 

@@ -20,10 +20,19 @@ overflow bit raises there.
 
 Subclasses provide ``_consume(vec)``, which applies one harvested
 (B, 8) int32 status array to ``self._stopped`` and friends.
+
+Thread model (the JAX one): ONE feed/dispatch thread; ``stopped`` /
+``last_points`` readers may poll from other threads at the same time.
+``_drain_lock`` serialises the probe → pop → consume sequence (and the
+queue append behind each launch), so two pollers never retire the same
+entry, consume a popped ``None`` or interleave the read-modify-writes of
+``_consume``.  It is held only for local work; the blocking settle alone
+waits on an event under it.
 """
 
 from __future__ import annotations
 
+import threading
 import time
 
 import torch
@@ -37,6 +46,7 @@ class BatchedStatusPolling:
         self._latest_done = None  # newest completed-but-unread host status
         self.poll_min_interval = 2048 / 22050.0  # one feature hop
         self._last_poll_time = 0.0
+        self._drain_lock = threading.Lock()
 
     def _record_status(self, status: torch.Tensor) -> None:
         """Snapshot a launch's status rows without waiting for the device."""
@@ -48,20 +58,23 @@ class BatchedStatusPolling:
             event.record()
         else:
             host, event = rows.clone(), None
-        self._outstanding.append((host, event))
+        with self._drain_lock:
+            self._outstanding.append((host, event))
 
     # -- free local probes ---------------------------------------------------
 
     def _probe(self) -> None:
         """Retire completed in-flight statuses (execution is in stream order,
-        so a completed entry subsumes all before it)."""
+        so a completed entry subsumes all before it).  The caller holds
+        ``_drain_lock``."""
         q = self._outstanding
         while q and (q[0][1] is None or q[0][1].query()):
             self._latest_done = q.pop(0)[0]
 
     def _in_flight(self) -> int:
-        self._probe()
-        return len(self._outstanding)
+        with self._drain_lock:
+            self._probe()
+            return len(self._outstanding)
 
     # -- reads ---------------------------------------------------------------
 
@@ -69,26 +82,28 @@ class BatchedStatusPolling:
         """Non-blocking refresh: retire finished launches and consume the
         newest completed vector if the rate limit allows; otherwise the
         vector stays in ``_latest_done`` for a later poll."""
-        self._probe()
-        if self._latest_done is None or self._stopped.all():
-            return
-        now = time.monotonic()
-        if now - self._last_poll_time < self.poll_min_interval:
-            return
-        self._last_poll_time = now
-        done, self._latest_done = self._latest_done, None
-        self._consume(done.numpy())
+        with self._drain_lock:
+            self._probe()
+            if self._latest_done is None or self._stopped.all():
+                return
+            now = time.monotonic()
+            if now - self._last_poll_time < self.poll_min_interval:
+                return
+            self._last_poll_time = now
+            done, self._latest_done = self._latest_done, None
+            self._consume(done.numpy())
 
     def _settle_status(self) -> None:
         """Blocking: consume the NEWEST in-flight status (waiting on the tail
         subsumes everything before), or the newest completed one."""
-        if self._outstanding:
-            host, event = self._outstanding[-1]
-            if event is not None:
-                event.synchronize()
-            self._outstanding = []
-            self._latest_done = None
-            self._consume(host.numpy())
-        elif self._latest_done is not None:
-            done, self._latest_done = self._latest_done, None
-            self._consume(done.numpy())
+        with self._drain_lock:
+            if self._outstanding:
+                host, event = self._outstanding[-1]
+                if event is not None:
+                    event.synchronize()
+                self._outstanding = []
+                self._latest_done = None
+                self._consume(host.numpy())
+            elif self._latest_done is not None:
+                done, self._latest_done = self._latest_done, None
+                self._consume(done.numpy())

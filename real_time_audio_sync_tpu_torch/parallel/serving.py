@@ -98,10 +98,11 @@ class FusedMultiStreamFollower(BatchedStatusPolling):
     def __init__(self, ref, params, n_streams: Optional[int] = None, cfg_overrides: Optional[dict] = None,
                  k_block: int = 8, interpret: bool = False, mesh=None, max_in_flight: int = 4,
                  long_ref: Optional[bool] = None, *, device="cuda"):
-        del interpret  # the tensors' device decides
         if mesh is not None:
             raise NotImplementedError("mesh=: stream sharding over several cards is not ported yet "
                                       "(ROADMAP Queue 1 item 9)")
+        self.mesh = None
+        self.interpret = bool(interpret)  # recorded, as in the JAX follower; the tensors' device decides
         p = OTWParams.from_any(params)
         over = dict(ENGINE_OVERRIDES["otw"])
         over.update(cfg_overrides or {})
@@ -126,6 +127,8 @@ class FusedMultiStreamFollower(BatchedStatusPolling):
                 raise ValueError(f"n_streams {n_streams} != {self.b} references")
         self.ref_lens = np.asarray([r.shape[1] for r in refs], np.int32)
         self.f = refs[0].shape[0]
+        self.n_max = max(r.shape[1] for r in refs)
+        self.caps = 2 * self.ref_lens  # per-stream live capacity (otw_eran.py:14)
 
         # windowed (delta) layout by default at every N (serving.py:250-267)
         self.long_ref = True if long_ref is None else bool(long_ref)

@@ -6,7 +6,8 @@ chroma column is extracted (on the follower's device) and fed to the
 engine, then the buffer advances by ``hop_size``.  The ``ScoreFollower``
 adds the beat/rehearsal-label lookup against the reference's ground-truth
 CSV (livenote_live.py:198,211-227) and field-log recording
-(livenote_live.py:138-154).
+(livenote_live.py:138-154); the ``WTWFollower`` is the raw-audio WTW app
+(wtw_live.py).
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ import numpy as np
 import torch
 
 from real_time_audio_sync_tpu_torch.config import FFT_LEN, FRAME_PERIOD_SEC, HOP_SIZE
-from real_time_audio_sync_tpu_torch.eval.ground_truth import GroundTruth, get_beat_and_label
+from real_time_audio_sync_tpu_torch.eval.ground_truth import GroundTruth, get_beat, get_beat_and_label
 from real_time_audio_sync_tpu_torch.eval.logs import write_field_log
 from real_time_audio_sync_tpu_torch.streaming.writer import combine_buffers
 from real_time_audio_sync_tpu_torch.utils.profiling import EMACpuLoad, LatencyRecorder
@@ -219,3 +220,139 @@ class AudioMeter:
             rms = np.clip(rms, 1e-10, 1)
             self.db = float(20 * np.log10(rms))
         return self.db
+
+
+class WTWFollower:
+    """Live follower around the raw-audio WTW engines — the wtw_live.py
+    app (the JAX package's ``streaming/runtime.py:260-403``): mic buffers go
+    straight to the engine's ``insert`` (it frames its own audio), the
+    display shows the current reference beat, stopping writes a field log
+    in the WTW header format (wtw_live.py:169-174) and, when live ground
+    truth exists, appends the accuracy-summary lines of the 'e' key
+    (wtw_live.py:299-307).
+
+    The positional parameters are the JAX follower's.  ``engine``: "wtw"
+    (the host engine, windows through kernels #7 and #8 on a card) or
+    "wtw_fused" (the fused kernel, float32; the position comes from the
+    polled status vector, never from a device synchronization);
+    "wtw_async" is not ported yet.  ``interpret`` is recorded by the fused
+    engine and otherwise ignored; ``device`` is where chroma and alignment
+    run."""
+
+    def __init__(
+        self,
+        ref_wav: str,
+        live_wav: Optional[str] = None,
+        params: Optional[dict] = None,
+        log_dir: Optional[str] = None,
+        dtype=np.float32,
+        engine: str = "wtw",
+        transfer_dtype: str = "float32",
+        interpret: bool = False,
+        *,
+        device="cuda",
+    ):
+        # live-app window sizes (wtw_live.py:106)
+        self.params = dict(
+            params
+            or {"fft_len": 4096, "hop_size": 2048, "dtw_win_size": 4096 * 50, "dtw_hop_size": 2048 * 50}
+        )
+        self.ref_wav = ref_wav
+        self.device = torch.device(device)
+        if engine == "wtw":
+            if transfer_dtype != "float32":
+                raise ValueError(
+                    "transfer_dtype applies to the device-resident engines "
+                    "('wtw_async'/'wtw_fused') only")
+            from real_time_audio_sync_tpu_torch.models.wtw import WTW
+
+            self.dtw = WTW(ref_wav, self.params, dtype=dtype, device=self.device)
+        elif engine == "wtw_async":
+            raise NotImplementedError("WTWFollower(engine='wtw_async'): AsyncWTW is not ported yet: "
+                                      "ROADMAP.md Queue 1, item 7c")
+        elif engine == "wtw_fused":
+            from real_time_audio_sync_tpu_torch.models.fused_wtw import FusedWTW
+
+            if np.dtype(dtype) != np.float32:
+                raise ValueError("engine='wtw_fused' is float32-only")
+            self.dtw = FusedWTW(ref_wav, self.params, transfer_dtype=transfer_dtype, interpret=interpret,
+                                device=self.device)
+        else:
+            raise ValueError(f"unknown WTW follower engine {engine!r}")
+        self.engine_name = engine
+        self.ref_gt = GroundTruth.from_csv(ref_wav[:-4] + ".csv") if os.path.exists(ref_wav[:-4] + ".csv") else None
+        self.live_gt = (
+            GroundTruth.from_csv(live_wav[:-4] + ".csv")
+            if live_wav and os.path.exists(live_wav[:-4] + ".csv")
+            else None
+        )
+        self.meter = AudioMeter()
+        self.latency = LatencyRecorder(audio_seconds_per_event=FRAME_PERIOD_SEC)
+        self.log_dir = log_dir
+        self.recording = False
+        self.stopped = False
+
+    def start(self) -> None:
+        self.recording = True
+
+    def receive_audio(self, frames) -> List[FollowEvent]:
+        self.meter.update(frames)
+        if not self.recording or self.stopped:
+            return []
+        self.latency.start()
+        status = self.dtw.insert(np.asarray(frames, np.float32))
+        self.latency.stop()
+        if status == "stop":
+            self.stopped = True
+        if self.engine_name == "wtw_fused":
+            # the score position from the last polled status vector
+            lp = self.dtw.last_point
+            if lp is None or lp[0] <= 0:
+                return []
+            live_f, ref_f = lp[1], lp[2]
+        elif not self.dtw.path:
+            return []
+        else:
+            live_f, ref_f = self.dtw.path[-1]
+        beat = get_beat(ref_f, self.ref_gt.times, self.ref_gt.beats) if self.ref_gt is not None else None
+        return [FollowEvent(int(live_f), int(ref_f), beat, None, ref_f * FRAME_PERIOD_SEC, self.stopped)]
+
+    def compute_error(self):
+        """'e'-key behaviour (wtw_live.py:212-214,267-309): beat-bucket
+        accuracy of the committed path; needs live ground truth."""
+        if self.live_gt is None or self.ref_gt is None:
+            return None
+        from real_time_audio_sync_tpu_torch.eval.scorer import PathScorer
+
+        return PathScorer(self.ref_gt, self.live_gt).score(self.dtw.path)
+
+    def stop(self) -> Optional[str]:
+        self.recording = False
+        if self.engine_name == "wtw_fused" and self.dtw.flush() == "stop":  # drain in-flight launches
+            self.stopped = True
+        if not self.log_dir:
+            return None
+        os.makedirs(self.log_dir, exist_ok=True)
+        log_path = os.path.join(self.log_dir, f"wtw_test_live_{time.time()}.txt")
+        summary = []
+        score = self.compute_error()
+        if score is not None:
+            for t_, label in ((1, "1 beat"), (3, "3 beats"), (5, "5 beats"), (10, "10 beats")):
+                summary.append(f"Percent incorrect (within {label}):{score.pct_off_beats[t_]}%")
+        write_field_log(
+            log_path,
+            self.ref_wav,
+            [
+                ("fft_len", self.params["fft_len"]),
+                ("hop_size", self.params["hop_size"]),
+                ("dtw_win_size", self.params["dtw_win_size"]),
+                ("dtw_hop_size", self.params["dtw_hop_size"]),
+            ],
+            self.dtw.path,
+            summary=summary,
+        )
+        return log_path
+
+    @property
+    def path(self):
+        return self.dtw.path

@@ -13,14 +13,18 @@ path lives on the host.  The ``multi_*`` functions carry a JAX
 ``FusedMultiStreamFollower``'s batched state (a leading stream axis, its
 SMEM arrays row-shaped ``(B, 1, X)``) stream by stream over the same
 functions, into the port's ``MultiOTWState`` layout and back.  The
-reference features are not state (each engine builds them from the same
-chroma).
+``fused_wtw_*`` functions carry a ``FusedWTW``'s state: JAX's sliding live
+window (rows on 128 lanes), 16 scalars and host path against the port's
+whole live history (n_cap, F), scalars and host path.  The reference
+features are not state (each engine builds them from the same chroma).
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from real_time_audio_sync_tpu_torch.ops.wtw_insert import WS_BASE, WS_CHROMA, WS_LIVE
 
 _LANES, _SUBLANES = 128, 8
 # scalar slots (pallas_otw.py:638-641, 865): t, first insert pending, and
@@ -179,3 +183,42 @@ def multi_long_state_to_jax(window, live, scalars, host_paths, *, c: int, ref_le
                              k_block=k_block) for b, n in enumerate(ref_lens)]
     w, live_win, sc = (np.stack([p[i] for p in per]) for i in range(3))
     return w, live_win, sc[:, None], [p[3] for p in per]
+
+
+def fused_wtw_state_from_jax(live_win, scalars, host_path, *, m: int, f: int):
+    """A JAX ``FusedWTW``'s state (numpy: its live window ``_live_win``,
+    ``_scalars`` and drained host path (P, 2)) → the port's ``(live,
+    scalars, host_path)``: CPU tensors (2m, f) and int32[16], and an int32
+    array.
+
+    The window's physical row p is live frame ``base + p`` (``base`` =
+    slot ``WS_BASE``, which the port's kernel leaves alone); it holds frames ``[base, chroma_ptr)``.  Frames before
+    ``base`` are gone from the JAX state and never read again (a window
+    reads frames from ``live_ptr`` on, and base ≤ live_ptr), so the port's
+    rows there stay zero."""
+    sc = np.array(scalars, dtype=np.int32)
+    base, cp = int(sc[WS_BASE]), int(sc[WS_CHROMA])
+    live = np.zeros((2 * m, f), np.float32)
+    if cp > base:
+        live[base:cp] = np.asarray(live_win)[: cp - base, :f]
+    sc[WS_BASE] = 0
+    return torch.from_numpy(live), torch.from_numpy(sc), np.array(host_path, dtype=np.int32).reshape(-1, 2)
+
+
+def fused_wtw_state_to_jax(live, scalars, host_path, *, w: int, hop_frames: int, k_block: int):
+    """The port's FusedWTW state ``(live (n_cap, F), scalars, host_path)``
+    → the JAX engine's ``(live_win (l_pad, 128), scalars, host_path)``,
+    numpy.  The window starts at ``base = live_ptr``: the JAX kernel's next
+    realign then moves nothing (pallas_wtw.py:185-188), and the frames
+    ``[live_ptr, chroma_ptr)`` it will read are in place."""
+    sc = np.array(scalars.detach().cpu().numpy(), dtype=np.int32)
+    lp, cp = int(sc[WS_LIVE]), int(sc[WS_CHROMA])
+    max_adv = (1 + -(-k_block // hop_frames)) * hop_frames  # the JAX wtw_geometry (pallas_wtw.py:108-112)
+    l_win = _round_up(w + k_block + max_adv + 16, _SUBLANES)
+    l_pad = l_win + _round_up(max_adv + 8, _SUBLANES)
+    rows = live.detach().cpu().numpy()
+    live_win = np.zeros((l_pad, _LANES), np.float32)
+    if cp > lp:
+        live_win[: cp - lp, : rows.shape[1]] = rows[lp:cp]
+    sc[WS_BASE] = lp
+    return live_win, sc, np.array(host_path, dtype=np.int32).reshape(-1, 2)

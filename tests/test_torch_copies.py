@@ -68,3 +68,42 @@ def test_ground_truth_scorer_and_field_log(tmp_path):
     log = tlogs.parse_field_log(str(tmp_path / "t.txt"))
     assert log.path == path and log.params() == dict(header)
     assert tlogs.parse_summary_percentages(log.summary) == [4.5]
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("t", [1, 8, 300])
+def test_host_chroma_frontend_is_bit_equal(dtype, t):
+    """``features/chroma.host_chroma_frames`` (the WTW engines' chroma
+    transfer) gives the JAX package's bits on the same frames, for any
+    worker count (the copy of ``features/chroma.py:70-292``)."""
+    from real_time_audio_sync_tpu.features import chroma as jchroma
+    from real_time_audio_sync_tpu_torch.features import chroma as tchroma
+
+    frames = (np.random.default_rng(t).standard_normal((t, 4096)) * 0.1).astype(dtype)
+    want = jchroma.host_chroma_frames(frames.copy())
+    for workers in (None, 3):
+        got = tchroma.host_chroma_frames(frames.copy(), workers=workers)
+        assert got.dtype == want.dtype and got.shape == (12, t)
+        np.testing.assert_array_equal(got, want)
+    silent = np.zeros((2, 4096), dtype)
+    np.testing.assert_array_equal(tchroma.host_chroma_frames(silent), jchroma.host_chroma_frames(silent))
+
+
+def test_host_worker_resolution(monkeypatch):
+    import warnings
+
+    from real_time_audio_sync_tpu.features import chroma as jchroma
+    from real_time_audio_sync_tpu_torch.features import chroma as tchroma
+
+    for env, arg in ((None, None), ("4", None), ("4", 2), ("x", None), ("0", None)):
+        if env is None:
+            monkeypatch.delenv("RTAS_HOST_FFT_WORKERS", raising=False)
+        else:
+            monkeypatch.setenv("RTAS_HOST_FFT_WORKERS", env)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")  # the malformed value warns in both
+            assert tchroma.resolve_host_workers(arg) == jchroma.resolve_host_workers(arg)
+    hann, fb = tchroma.host_frontend_constants()
+    jhann, jfb = jchroma.host_frontend_constants()
+    np.testing.assert_array_equal(hann, jhann)
+    np.testing.assert_array_equal(fb, jfb)

@@ -118,7 +118,7 @@ def test_align_pair_argument_checks_and_unported_engines(cases):
     with pytest.raises(ValueError, match="float32"):
         tcorpus.align_pair(ref, live, "otw", mode="fused", dtype=np.float64, device="cpu")
     for engine, mode, item in (("otw", "insert", "item 1"), ("livenote_v2_diff", "insert", "item 1"),
-                               ("wtw", "insert", "item 7"), ("wtw", "fused", "item 7")):
+                               ("wtw", "insert", "item 7c")):
         with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue 1, {item}"):
             tcorpus.align_pair(ref, live, engine, mode=mode, device="cpu")
     with pytest.raises(NotImplementedError, match="item 1"):  # dtw runs, then otw raises
@@ -129,9 +129,11 @@ def test_align_pair_argument_checks_and_unported_engines(cases):
     got = tcorpus.run_simple(ref, live, verbose=False, device="cpu")
     assert list(got) == ["dtw"]
     _same_result(got["dtw"], tcorpus.align_pair(ref, live, device="cpu"))
-    # the online engines' fused mode is ported
+    # the online engines' fused mode is ported, and WTW's fused mode
     fused = tcorpus.align_pair(ref, live, "livenote_v2", mode="fused", device="cpu")
     assert fused.engine == "livenote_v2" and tuple(fused.path[0]) == (0, 0) and fused.score.count > 20
+    wtw = tcorpus.align_pair(ref, live, "wtw", mode="fused", device="cpu")
+    assert wtw.engine == "wtw" and tuple(wtw.path[0]) == (0, 0) and wtw.score.count > 20
 
 
 # each engine on a case the synthetic corpus's bound holds for (the

@@ -59,6 +59,12 @@ ENTRY_POINTS = [
     ("streaming.runtime", "ScoreFollower"),
     ("models.fused_streaming", "FusedStreamingEngine"),
     ("parallel.serving", "FusedMultiStreamFollower"),
+    ("models.wtw", "WTW"),
+    ("models.fused_wtw", "FusedWTW"),
+    ("streaming.runtime", "WTWFollower"),
+    ("eval.wtw_offline", "WTWOfflineEvaluator"),
+    ("parallel.transfer", "probe_link_bandwidth"),
+    ("parallel.transfer", "resolve_transfer_mode"),
     ("features.chroma", "frontend_constants"),
     ("features.chroma", "chroma_from_samples"),
     ("features.chroma", "wav_to_chroma"),
@@ -108,3 +114,66 @@ def test_cli_defaults_to_the_card(monkeypatch):
     assert main(["--corpus", "Songs", "--engine", "dtw"]) == 0
     assert main(["--corpus", "Songs", "--engine", "dtw", "--device", "cpu"]) == 0
     assert seen == ["cuda", "cpu"]
+
+
+# public names that an object of one package has and the same object of the
+# other lacks, each with the reason
+NAME_DIFFERENCES = {
+    "device": "port only: the torch device the state lives on and the kernels run on",
+    "async_harvest": "JAX only: its status reads are relay round-trips on a helper thread; the port reads "
+                     "pinned buffers behind CUDA events and has no helper thread to switch",
+    "ref_t": "JAX only: the reference transposed onto 128 TPU lanes; the port keeps it in its engine "
+             "state's own layout",
+}
+
+
+def _both(name):
+    """The same object built by each package on the same inputs and
+    arguments (``interpret=True``: JAX's kernels run in interpret mode on
+    the CPU, and the port records the switch)."""
+    import numpy as np
+
+    from tests.test_pallas_wtw import WP, _synth
+
+    feats = np.random.default_rng(0).random((12, 40)).astype(np.float32)
+    band = {"c": 10, "max_run_count": 3}
+    audio, _ = _synth(seed=1, ref_s=6)
+    if name == "FusedStreamingEngine":
+        from real_time_audio_sync_tpu.models.fused_streaming import FusedStreamingEngine as J
+        from real_time_audio_sync_tpu_torch.models.fused_streaming import FusedStreamingEngine as T
+
+        return J(feats, band, interpret=True), T(feats, band, interpret=True, device="cpu")
+    if name == "FusedMultiStreamFollower":
+        from real_time_audio_sync_tpu.parallel import FusedMultiStreamFollower as J
+        from real_time_audio_sync_tpu_torch.parallel import FusedMultiStreamFollower as T
+
+        return J(feats, band, 2, interpret=True), T(feats, band, 2, interpret=True, device="cpu")
+    if name == "FusedWTW":
+        from real_time_audio_sync_tpu.models.fused_wtw import FusedWTW as J
+        from real_time_audio_sync_tpu_torch.models.fused_wtw import FusedWTW as T
+
+        return J(audio, WP, interpret=True), T(audio, WP, interpret=True, device="cpu")
+    from real_time_audio_sync_tpu.models.wtw import WTW as J
+    from real_time_audio_sync_tpu_torch.models.wtw import WTW as T
+
+    return J(audio, WP), T(audio, WP, device="cpu")
+
+
+@pytest.mark.parametrize("name", ["FusedStreamingEngine", "FusedMultiStreamFollower", "FusedWTW", "WTW"])
+def test_public_names_match_the_jax_objects(name):
+    """The public ``dir()`` names (which hold the public ``vars()``) of an
+    object built in both packages differ only by ``NAME_DIFFERENCES``; the
+    attributes the JAX package's own callers read have its meanings."""
+    import numpy as np
+
+    jax_obj, port_obj = _both(name)
+
+    def public(o):
+        return {n for n in dir(o) if not n.startswith("_")}
+
+    differ = public(jax_obj) ^ public(port_obj)
+    assert differ <= set(NAME_DIFFERENCES), sorted(differ - set(NAME_DIFFERENCES))
+    shared = {"dtype", "interpret", "mesh", "caps", "n_max", "k_block", "b", "ref_lens", "N", "M"}
+    for attr in sorted(shared & public(jax_obj)):
+        got, want = getattr(port_obj, attr), getattr(jax_obj, attr)
+        assert np.array_equal(np.asarray(got), np.asarray(want)), attr

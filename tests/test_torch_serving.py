@@ -440,3 +440,54 @@ def test_serving_state_carries_across_from_jax_and_back(long_ref):
             st.window, st.live, st.path_x, st.path_y, st.scalars, c=c, n_max=n_max, f=f))
     _assert_paths(_run(back, schedule[third:]), solo)
     _assert_paths(_run(port, schedule[third:]), solo)
+
+
+@pytest.mark.parametrize("long_ref", [True, False], ids=["windowed", "whole"])
+def test_status_readers_on_other_threads_while_the_feed_runs(long_ref):
+    """``stopped`` / ``last_points`` polled from two reader threads while
+    the main thread feeds, as the JAX package documents
+    (parallel/polling.py:13-18; tests/test_aux.py:398-430 for the solo
+    engine), with ``poll_min_interval = 0`` and a short thread switch
+    interval so the threads interleave inside the polling sequence: no
+    exception in any thread, and the final paths equal a single-threaded
+    run's."""
+    import sys
+    import threading
+
+    ref, live = _make_pair(np.random.default_rng(43), n_ref=80)
+    b = 3
+
+    def run(readers: int):
+        f = _port(ref, n_streams=b, long_ref=long_ref)
+        f.poll_min_interval = 0.0
+        errors, done = [], threading.Event()
+
+        def reader():
+            try:
+                while not done.is_set():
+                    _ = f.stopped, f.last_points
+            except Exception as e:  # the regression itself
+                errors.append(e)
+
+        threads = [threading.Thread(target=reader) for _ in range(readers)]
+        switch = sys.getswitchinterval()
+        sys.setswitchinterval(1e-6)
+        try:
+            for t in threads:
+                t.start()
+            for i in range(live.shape[1]):
+                f.feed(np.repeat(live[None, :, i], b, axis=0))
+            f.flush()
+        finally:
+            done.set()
+            for t in threads:
+                t.join(10)
+            sys.setswitchinterval(switch)
+        return errors, f.paths(), f.last_points
+
+    errors, paths, points = run(readers=2)
+    assert not errors, errors
+    _, want, want_points = run(readers=0)
+    for got, w in zip(paths, want):
+        np.testing.assert_array_equal(got, w)
+    np.testing.assert_array_equal(points, want_points)
