@@ -132,6 +132,36 @@ Phases, each raising on failure (the process then exits non-zero):
    mode="fused", device="cuda")`` at the harness's widths (w = 20): wall
    and ``PathScorer`` buckets a pair, paths equal to ``mode="oracle"``.
 
+12. multi-stream WTW serving: kernel #9's CUDA kernel over a grid of B
+   streams (kernel #10) —
+   (a) the batched kernel against its plain version (host copies) and the
+   solo kernel #9 on each stream alone, launch by launch, over phase 11's
+   (w, hop_frames) x k_block in {1, 8, 32} x {a ragged B = 3 of references
+   of different lengths, a B = 5 with a margin and a capacity stop, a
+   shared reference x 3}, per-stream counts 0..k_block, two frozen
+   launches after the last stop: rows, scalars and live histories EQUAL;
+   the blocks an SM holds (the occupancy calculator);
+   (b) ``FusedMultiStreamWTW`` with B = 64 streams on the shared
+   ``sonata_allegro`` ``_00`` reference at the live app's w = 100, hop 50,
+   k_block 8, float32 spans, even streams on ``_01`` and odd on ``_02``,
+   one 2048-sample buffer per stream a hop, stream i joining at hop i: the
+   even streams' paths all equal and the odd streams' all equal, streams
+   0, 1, 62, 63 equal to a solo ``FusedWTW`` on the card, stream 0
+   beginning with the CPU plain engine's path over the first 1,000 hops;
+   the frontend's columns equal to each stream's tiles alone at B = 1, 18
+   and 64, with one batched product a stage timed beside it; wall, RTF,
+   host time a hop, dispatches, launches read from the counters, device
+   bytes per stream, the final drain, a traced slice; then k_block 32 with
+   host chroma (``bench.py:787``): RTF and the points that move;
+   (c) ``CorpusRunner(root, "wtw", mode="fused", device="cuda")`` over the
+   full-scale corpus's 18 pairs (mixed references, w = 20): every pair's
+   path equal to solo ``align_pair(engine="wtw", mode="fused")``; the
+   sweep's wall against the solo runs', launches, buckets;
+   (d) the kernel's time at w = 100 and B in {1, 64, 256}, and at w = 128,
+   B = 256 (two waves): profiler device time a launch (window and
+   append-only launches apart), CUDA events, the bound; the plain version
+   at B = 4 from the same state, rows and states equal to the kernel's.
+
 The builds run in parallel (one ``nvcc`` per source).  Then one JSON line
 of per-kernel results, and last ``{"ok": true, "device": {...}}``.
 Without a CUDA device it exits non-zero before printing any result.
@@ -173,6 +203,9 @@ KERNELS = {
     # kernel #9: K hop columns of streaming WTW
     "wtw_insert_block": ("wtw_insert", f"{CSRC}/wtw_insert.cu",
                          "real_time_audio_sync_tpu/ops/pallas_wtw.py:360"),
+    # kernel #10: kernel #9's CUDA kernel over a grid of B streams
+    "wtw_multi_insert_block": ("wtw_insert", f"{CSRC}/wtw_insert.cu",
+                               "real_time_audio_sync_tpu/ops/pallas_wtw.py:408"),
 }
 # the card's published peaks (H100 SXM data sheet, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
@@ -217,6 +250,17 @@ LIVE_APP_WTW = {"fft_len": 4096, "hop_size": 2048, "dtw_win_size": 4096 * 50, "d
 WTW_PLAIN_HOPS = 1000
 WTW_TIMED_LAUNCHES = 64
 WTW_TRACE_BUFFERS = 800
+# phase 12: the streams served (bench.py:764 sizes WTW serving at 64), the
+# k_block of the host-chroma run (bench.py:787), the hops of the traced
+# slice, the batches at which the frontend is checked and timed (18: the
+# sweep's pairs), the (w, hop_frames, B) timed (B = 256 at w = 128 is two
+# waves), and the plain version's batch
+WTW_SERVING_STREAMS = 64
+WTW_CHROMA_K_BLOCK = 32
+WTW_SERVING_TRACE_HOPS = 96
+WTW_FRONTEND_BATCHES = (1, 18, WTW_SERVING_STREAMS)
+WTW_MULTI_TIMING = ((100, 50, 1), (100, 50, WTW_SERVING_STREAMS), (100, 50, 256), (128, 64, 256))
+WTW_MULTI_PLAIN_BATCH = 4
 
 
 def log(msg: str) -> None:
@@ -1767,16 +1811,17 @@ def serving_trace(ref, lives, lens, perf, device) -> None:
     serve(fms, lives, lens, perf, TRACE_HOPS)
 
 
-def wtw_stream(rng, w: int, hop: int, scenario: str):
+def wtw_stream(rng, w: int, hop: int, scenario: str, extra: int = 0):
     """(ref (m, 12), live rows, m, n_cap, start (cp, lp, rp)) of one phase 11
-    (a) stream.  "run": a fresh stream that runs windows until the margin
-    stop; "margin": mid-stream, the live capacity puts live_ptr at
-    n_cap-1-w after the first window; "capacity": chroma_ptr one column
-    short of n_cap, w+3 columns ahead of live_ptr, so the second column
-    finds no room."""
+    (a) stream, its reference ``extra`` frames longer than the default.
+    "run": a fresh stream that runs windows until the margin stop;
+    "margin": mid-stream, the live capacity puts live_ptr at n_cap-1-w
+    after the first window; "capacity": chroma_ptr one column short of
+    n_cap, w+3 columns ahead of live_ptr, so the second column finds no
+    room."""
     import numpy as np
 
-    m = 3 * w + hop + 10
+    m = 3 * w + hop + 10 + extra
     if scenario == "run":
         n_cap, cp0, lp0 = 2 * m, 0, 0
     elif scenario == "margin":
@@ -1867,6 +1912,35 @@ def wtw_columns(pcm, device):
     x = torch.from_numpy(pcm.astype("float32")).to(device)
     t = (len(pcm) - 4096) // 2048 + 1
     return chroma_frames_tiled(frame_span(x, t, 4096, 2048))
+
+
+def plain_wtw_path(ref_wav: str, pcm, cols, ref_rows, hops: int):
+    """The CPU plain engine's path (a ``FusedWTW`` on the CPU, the live
+    app's parameters) over the first ``hops`` hops of ``pcm`` in
+    2048-sample buffers, fed the card's chroma columns ``cols`` (12, T) and
+    the card's reference rows ``ref_rows`` (m, 12)."""
+    import torch
+
+    from real_time_audio_sync_tpu_torch.models import FusedWTW
+
+    class CardColumns(FusedWTW):
+        """FusedWTW on the CPU that takes the card's chroma columns."""
+
+        def _columns(self, n):
+            self.buf.consume(n * self.hop_size)
+            out = torch.zeros((self.k_block, 12))
+            out[:n] = cols[:, self.fed : self.fed + n].T.cpu()
+            self.fed += n
+            return out
+
+    plain = CardColumns(ref_wav, LIVE_APP_WTW, device="cpu")
+    plain.fed = 0
+    plain._state.ref.copy_(ref_rows.cpu())
+    n_samples = (hops - 1) * 2048 + 4096
+    for s in range(0, n_samples, 2048):
+        plain.insert(pcm[s : min(s + 2048, n_samples)])
+    plain.flush()
+    return plain.path_array
 
 
 def chroma_tile_cost(device, card: str, reps: int = 200) -> None:
@@ -1980,24 +2054,8 @@ def phase_wtw_main_path(device, root: str, card: str):
     # the plain version: a CPU FusedWTW on the card's columns and reference, the first hops
     cols = wtw_columns(pcm, device)
 
-    class CardColumns(FusedWTW):
-        """FusedWTW on the CPU that takes the card's chroma columns."""
-
-        def _columns(self, n):
-            self.buf.consume(n * self.hop_size)
-            out = torch.zeros((self.k_block, 12))
-            out[:n] = cols[:, self.fed : self.fed + n].T.cpu()
-            self.fed += n
-            return out
-
-    plain = CardColumns(ref_wav, LIVE_APP_WTW, device="cpu")
-    plain.fed = 0
-    plain._state.ref.copy_(eng._state.ref.cpu())
     t1 = time.perf_counter()
-    for s in range(0, (WTW_PLAIN_HOPS - 1) * 2048 + 4096, 2048):
-        plain.insert(pcm[s : min(s + 2048, (WTW_PLAIN_HOPS - 1) * 2048 + 4096)])
-    plain.flush()
-    plain_path = plain.path_array
+    plain_path = plain_wtw_path(ref_wav, pcm, cols, eng._state.ref, WTW_PLAIN_HOPS)
     if len(plain_path) == 0 or not np.array_equal(plain_path, path[: len(plain_path)]):
         raise AssertionError("phase 11 (b): the card's path does not begin with the CPU plain engine's")
     log(f"phase 11 (b): the CPU plain engine over the first {WTW_PLAIN_HOPS} hops (a cut; the card ran "
@@ -2117,6 +2175,457 @@ def phase_wtw_main_path(device, root: str, card: str):
         "windows": windows, "window_ms": window_ms, "append_only_ms": idle_ms}
 
 
+def wtw_batch(rng, w: int, hop: int, case: str):
+    """(streams, shared) of one phase 12 (a) batch, each stream
+    :func:`wtw_stream`'s (ref, live, m, n_cap, start); a "run" stream's
+    reference is a window shorter than phase 11's and the stream starts
+    w-1 columns in, so that its first column makes a window due and it
+    reaches its margin stop after a few windows (a cut that bounds the
+    phase's time: the plain version's windows take most of it).
+    "ragged": three streams on references of different lengths; "stops":
+    five, stream 1 reaching its margin stop and stream 3 its capacity
+    stop; "shared": three performances of one reference."""
+    import numpy as np
+
+    def stream(scenario, extra=0):
+        if scenario != "run":
+            return wtw_stream(rng, w, hop, scenario)
+        return wtw_stream(rng, w, hop, "run", extra - w)[:4] + ((w - 1, 0, 0),)
+
+    if case == "ragged":
+        return [stream("run", 9 * i) for i in range(3)], False
+    if case == "stops":
+        return [stream(scenario, extra) for scenario, extra in
+                (("run", 0), ("margin", 0), ("run", 11), ("capacity", 0), ("run", 5))], False
+    ref, live, m, n_cap, start = stream("run")
+    lives = [live]
+    for _ in range(2):
+        path = np.clip(np.cumsum(rng.integers(0, 3, n_cap + 64)) // 2, 0, m - 1)
+        lives.append(np.ascontiguousarray(unit_cols((ref[path] + 0.1 * rng.random((n_cap + 64, 12))).T).T))
+    return [(ref, lv, m, n_cap, start) for lv in lives], True
+
+
+def run_wtw_batch(streams, shared: bool, w: int, hop: int, k: int, device, what: str):
+    """One batch through kernel #10 (on the card), its plain version (on host
+    copies) and kernel #9 on each stream alone (on the card), launch by
+    launch with per-stream counts 0..k (k but on every third launch of a
+    stream, where it is (3·launch + 5·b + 1) mod (k + 1)), until two launches after every
+    stream has stopped; raises unless every stream's row, scalars and live
+    history are EQUAL across the three.  Returns (launches, committed
+    points, the plain state's scalars)."""
+    import numpy as np
+    import torch
+
+    from real_time_audio_sync_tpu_torch.ops import wtw_insert
+
+    b_n = len(streams)
+    refs = [torch.from_numpy(s[0].T.copy()).to(device) for s in (streams[:1] if shared else streams)]
+    kern = wtw_insert.new_multi_state(refs * b_n if shared else refs, [s[3] for s in streams])
+    if kern.ref.shape[0] != (1 if shared else b_n):
+        raise AssertionError(f"{what}: reference stack of {kern.ref.shape[0]}")
+    for b, (_, live, _, _, start) in enumerate(streams):
+        kern.live[b, : start[0]] = torch.from_numpy(live[: start[0]]).to(device)
+        kern.scalars[b, :3] = torch.tensor(start, dtype=torch.int32)
+    plain = clone_state(kern, "cpu")
+    solos = [clone_state(kern.stream(b)) for b in range(b_n)]
+    width = wtw_insert.delta_width(w, hop, k)
+    lens = np.array([[s[2], s[3], 0] for s in streams], np.int32)
+    launches, after = 0, 0
+    while after < 2:
+        if launches > 4 * max(s[3] for s in streams) + 8:
+            raise AssertionError(f"{what}: no stop after {launches} launches")
+        sc = plain.scalars.numpy()
+        cols = np.zeros((b_n, k, 12), np.float32)
+        for b, (_, live, _, _, _) in enumerate(streams):
+            take = live[sc[b, wtw_insert.WS_CHROMA] :][:k]
+            cols[b, : len(take)] = take
+            lens[b, 2] = k if (launches + b) % 3 else (3 * launches + 5 * b + 1) % (k + 1)
+        cols_d, lens_d = torch.from_numpy(cols).to(device), torch.from_numpy(lens.copy()).to(device)
+        rows = torch.empty((b_n, width), dtype=torch.int32, device=device)
+        solo_rows = torch.empty((b_n, width), dtype=torch.int32, device=device)
+        plain_rows = torch.empty((b_n, width), dtype=torch.int32)
+        wtw_insert.multi_wtw_insert_block(kern, cols_d, lens_d, w, hop, k, rows)
+        for b in range(b_n):
+            wtw_insert.wtw_insert_block(solos[b], cols_d[b], tuple(int(v) for v in lens[b]), w, hop, k, solo_rows[b])
+        wtw_insert.multi_wtw_insert_block_reference(plain, torch.from_numpy(cols), torch.from_numpy(lens.copy()), w,
+                                                    hop, k, plain_rows)
+        torch.cuda.synchronize()
+        for name, x, y in (("rows", rows, plain_rows), ("scalars", kern.scalars, plain.scalars),
+                           ("live", kern.live, plain.live)):
+            if not torch.equal(x.cpu(), y):
+                raise AssertionError(f"{what}: kernel #10 and plain disagree on {name} at launch {launches}")
+        for b in range(b_n):
+            for name, x, y in (("row", solo_rows[b], plain_rows[b]), ("scalars", solos[b].scalars, plain.scalars[b]),
+                               ("live", solos[b].live, plain.live[b])):
+                if not torch.equal(x.cpu(), y):
+                    raise AssertionError(f"{what}: stream {b} alone (kernel #9) disagrees on {name} at launch "
+                                         f"{launches}")
+        launches += 1
+        after += bool((plain.scalars[:, wtw_insert.WS_FLAGS] & 1).all())
+    return launches, int(plain.scalars[:, wtw_insert.WS_PLEN].sum()), plain.scalars
+
+
+def phase_wtw_multi_vs_plain(device) -> float:
+    """Phase 12 (a): kernel #10 against its plain version and against kernel
+    #9 stream by stream; returns the largest |diff| (0.0 when equal)."""
+    import numpy as np
+    import torch
+
+    from real_time_audio_sync_tpu_torch.ops import _build, wtw_insert
+
+    t0 = time.perf_counter()
+    lib = _build.load("wtw_insert").lib
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    log("phase 12 (a): blocks an SM (the occupancy calculator, 128 threads a block): " + ", ".join(
+        f"w={w}: {lib.wtw_blocks_per_sm(w, 12)} ({lib.wtw_shared_bytes(w, 12)} B of shared memory), "
+        f"{lib.wtw_blocks_per_sm(w, 12) * sms} blocks in one wave on {sms} SMs" for w in (20, 100, 128)))
+    batches, launches, points = 0, 0, 0
+    for w, hop in WTW_SHAPES:
+        for k in K_BLOCKS:
+            for case in ("ragged", "stops", "shared"):
+                rng = np.random.default_rng(12000 + 100 * w + 10 * k + hop + len(case))
+                streams, shared = wtw_batch(rng, w, hop, case)
+                what = f"phase 12 (a) [w={w} hop={hop} k_block={k} {case}]"
+                n, p, sc = run_wtw_batch(streams, shared, w, hop, k, device, what)
+                if case == "stops" and not (sc[1, wtw_insert.WS_FLAGS] & 1
+                                            and sc[3, wtw_insert.WS_CHROMA] == streams[3][3]):
+                    raise AssertionError(f"{what}: the margin or the capacity stop was not reached")
+                batches, launches, points = batches + 1, launches + n, points + p
+    log(f"phase 12 (a): kernel #10 == plain == kernel #9 stream by stream (tolerance 0: rows, scalars, live "
+        f"history after every launch) over {batches} batches ((w, hop) in {WTW_SHAPES} x k_block in {K_BLOCKS} x "
+        f"a ragged B = 3 of references of different lengths, a B = 5 with a margin and a capacity stop, a shared "
+        f"reference x 3; per-stream counts 0..k_block; 2 frozen launches after the last stop), {launches} "
+        f"launches, {points} committed points, {time.perf_counter() - t0:.1f} s")
+    return 0.0
+
+
+def batched_tile_columns(spans, t: int):
+    """The alternative to ``chroma_spans_tiled`` that phase 12 (b) times: every
+    stream's tiles of CHROMA_TILE frames in ONE batched product a stage
+    (``torch.bmm`` over B·t/8 tiles), (B, span) → (B, t, 12).  Its rows keep
+    the per-stream tiles' bits only if the library runs each batch entry as
+    the same 8-row product; phase 12 counts the streams where it does."""
+    import torch
+
+    from real_time_audio_sync_tpu_torch.features.chroma import CHROMA_TILE, frontend_constants
+
+    b = spans.shape[0]
+    win, dft_cos, dft_sin, fb_t = frontend_constants(4096, 22050, spans.dtype, device=spans.device)
+    blocks = spans[:, : (t + 1) * 2048].reshape(b, t + 1, 2048)
+    tiles = torch.cat([blocks[:, :-1], blocks[:, 1:]], dim=2).reshape(b * t // CHROMA_TILE, CHROMA_TILE, 4096)
+    n = tiles.shape[0]
+    wf = tiles * win
+    re = torch.bmm(wf, dft_cos.expand(n, -1, -1))
+    im = torch.bmm(wf, dft_sin.expand(n, -1, -1))
+    raw = torch.bmm(re * re + im * im, fb_t.expand(n, -1, -1))
+    norm = torch.sqrt(torch.sum(raw * raw, dim=2, keepdim=True))
+    raw = raw / torch.where(norm < torch.finfo(raw.dtype).tiny, torch.ones_like(norm), norm)
+    return raw.reshape(b, t, 12)
+
+
+def frontend_forms(pcms, b: int, device, card: str, reps: int = 20) -> None:
+    """Phase 12 (b)'s frontend at B streams: ``chroma_spans_tiled`` (the
+    engine's) must give each stream's columns bit for bit as the solo
+    engines' tiles do; the batched alternative is timed beside it and its
+    equal streams counted (host wall with a synchronise, and CUDA events)."""
+    import numpy as np
+    import torch
+
+    from real_time_audio_sync_tpu_torch.features.chroma import chroma_frames_tiled, chroma_spans_tiled, frame_span
+
+    span = 7 * 2048 + 4096
+    host = np.stack([pcms[i % 2][(i * 8 * 2048) % (len(pcms[i % 2]) - span):][:span] for i in range(b)])
+    spans = torch.from_numpy(host.astype(np.float32)).to(device)
+    got = chroma_spans_tiled(spans, 8)
+    for i in range(b):
+        if not torch.equal(got[i], chroma_frames_tiled(frame_span(spans[i], 8, 4096, 2048)).T):
+            raise AssertionError(f"phase 12 (b): the frontend's columns of stream {i} of {b} differ from the "
+                                 f"stream's tiles alone")
+    equal = int(sum(torch.equal(x, y) for x, y in zip(batched_tile_columns(spans, 8), got)))
+    times = []
+    for fn in (lambda: chroma_spans_tiled(spans, 8), lambda: batched_tile_columns(spans, 8)):
+        fn()
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(((time.perf_counter() - t0) * 1e3 / reps, start.elapsed_time(end) / reps))
+    log(f"phase 12 (b) [{card}]: frontend of one dispatch at B = {b}, k_block 8: per-stream tiles (the engine's) "
+        f"{times[0][0]:.3f} ms host wall, {times[0][1]:.3f} ms events, columns == each stream's tiles alone; one "
+        f"batched product a stage {times[1][0]:.3f} ms wall, {times[1][1]:.3f} ms events, bit-equal on {equal} of "
+        f"{b} streams ({reps} back to back each)")
+
+
+def serve_wtw(ms, buffers, perf, hops: int) -> None:
+    """Feed ``ms`` for ``hops`` hops: stream i follows performance
+    ``perf[i]`` (``buffers[p]`` its 2048-sample buffers), joining at hop i,
+    one buffer a hop until its performance ends; then flush."""
+    for h in range(hops):
+        ms.insert([buffers[p][h - i] if 0 <= h - i < len(buffers[p]) else None for i, p in enumerate(perf)])
+    ms.flush()
+
+
+def wtw_serving_run(ref_wav: str, buffers, perf, k_block: int, transfer: str, device, label: str):
+    """One main-path run of ``FusedMultiStreamWTW`` (B = len(perf) on the
+    shared reference ``ref_wav``, the live app's parameters), every WTW
+    launch counter set to 0 just before and read just after; raises unless
+    each dispatch was one launch of kernel #10 and none of kernel #9.
+    Returns (engine, paths, launches, wall)."""
+    import numpy as np
+    import torch
+
+    from real_time_audio_sync_tpu_torch.ops import wtw_insert
+    from real_time_audio_sync_tpu_torch.parallel import FusedMultiStreamWTW
+
+    b = len(perf)
+    ms = FusedMultiStreamWTW([ref_wav] * b, LIVE_APP_WTW, k_block=k_block, transfer_dtype=transfer, device=device)
+    sizes, dispatch = [], ms._dispatch
+
+    def counted(ks):
+        sizes.append(int(ks.max()))
+        dispatch(ks)
+
+    ms._dispatch = counted
+    hops = b - 1 + max(len(x) for x in buffers)
+    torch.cuda.synchronize()
+    wtw_insert.launches = wtw_insert.multi_launches = 0
+    t0 = time.perf_counter()
+    serve_wtw(ms, buffers, perf, hops)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = (wtw_insert.launches, wtw_insert.multi_launches)
+    if counts != (0, len(sizes)) or not sizes:
+        raise AssertionError(f"{label}: launches (kernel #9, kernel #10) {counts} for {len(sizes)} dispatches")
+    pending, entries = pending_delta_bytes(ms), len(ms._deltas)
+    t1 = time.perf_counter()
+    paths = ms.paths()
+    drain_s = time.perf_counter() - t1
+    audio = np.asarray([len(buffers[p]) * 2048 / 22050 for p in perf])
+    st = ms._state
+    dev_bytes = sum(x.numel() * x.element_size() for x in (st.ref, st.live, st.scalars)) // b
+    log(f"{label}: B = {b}, k_block {k_block}, transfer_dtype={transfer!r}, {hops} hops; wall {wall:.3f} s; RTF per "
+        f"stream {audio.mean() / wall:.2f} (mean; min {audio.min() / wall:.2f}), aggregate {audio.sum() / wall:.1f}; "
+        f"host {wall / hops * 1e6:.1f} us a hop ({wall / hops / b * 1e6:.2f} us a stream-hop); {len(sizes)} "
+        f"dispatches; launches read from the counters: {counts[1]} of kernel #10, {counts[0]} of kernel #9; "
+        f"stopped {int(ms.stopped.sum())} of {b}")
+    log(f"{label}: device bytes per stream {dev_bytes} (live history {st.live.shape[1]} x {st.live.shape[2]} float32, "
+        f"the shared reference {st.ref.numel() * 4} B once); final paths() drained {entries} pending entries, "
+        f"{pending} B ({pending / b:.0f} B per stream), in {drain_s:.3f} s")
+    return ms, paths, counts[1], wall
+
+
+def multi_wtw_bound(w: int, k: int, launches: int, windows: int, width: int, b: int):
+    """(bound ms a launch, "bytes" or "operations") of B identical streams
+    on one shared reference over ``launches`` launches that ran
+    ``windows`` windows a stream: per stream what :func:`wtw_bound` counts
+    but the reference window, plus its lens row; the reference window of
+    each window step once (every stream reads the same rows)."""
+    per_stream = launches * (2 * k * 48 + 2 * 16 * 4 + width * 4 + 12) + windows * w * 48
+    bytes_ = b * per_stream + windows * w * 48
+    ops = b * windows * (w * w * (27 + 8) + 2 * w * 24)
+    t_bytes, t_ops = bytes_ / HBM_BYTES_PER_S * 1e3 / launches, ops / FP32_FLOPS * 1e3 / launches
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_wtw_multi_time(device, ref, cols, card: str):
+    """Phase 12 (d): kernel #10 at (w, hop, B) in WTW_MULTI_TIMING, k_block 8,
+    every stream on the main path's first launches' columns against the
+    shared sonata_allegro reference: profiler device time a launch (window
+    and append-only launches apart), CUDA events back to back, the bound,
+    the waves; at B = 4 the plain version (host copies) from the same
+    state, whose rows and states must equal the kernel's.  Returns
+    {(w, hop, B): (dev_ms, event_ms, bound_ms, bound_by, window_ms,
+    append_only_ms)} and the plain version's ms a launch."""
+    import torch
+
+    from real_time_audio_sync_tpu_torch.ops import _build, wtw_insert
+
+    lib = _build.load("wtw_insert").lib
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    k, reps = 8, WTW_TIMED_LAUNCHES
+    m = ref.shape[1]
+    out = {}
+    for w, hop, b in WTW_MULTI_TIMING + ((100, 50, WTW_MULTI_PLAIN_BATCH),):
+        blocks = [cols[:, r * k : (r + 1) * k].T.expand(b, k, 12).contiguous() for r in range(reps)]
+        lens = torch.tensor([[m, 2 * m, k]] * b, dtype=torch.int32, device=device)
+        width = wtw_insert.delta_width(w, hop, k)
+        rows = torch.empty((reps, b, width), dtype=torch.int32, device=device)
+
+        def fresh():
+            return wtw_insert.new_multi_state([ref] * b, [2 * m] * b)
+
+        def launch(st, r):
+            wtw_insert.multi_wtw_insert_block(st, blocks[r], lens, w, hop, k, rows[r])
+
+        warm = fresh()
+        for r in range(reps):
+            launch(warm, r)
+        if b == WTW_MULTI_PLAIN_BATCH:
+            plain, plain_rows = clone_state(fresh(), "cpu"), torch.empty((reps, b, width), dtype=torch.int32)
+            host_blocks, host_lens = [x.cpu() for x in blocks], lens.cpu()
+            t0 = time.perf_counter()
+            for r in range(reps):
+                wtw_insert.multi_wtw_insert_block_reference(plain, host_blocks[r], host_lens, w, hop, k, plain_rows[r])
+            plain_ms = (time.perf_counter() - t0) * 1e3 / reps
+            torch.cuda.synchronize()
+            for name, x, y in (("rows", rows, plain_rows), ("scalars", warm.scalars, plain.scalars),
+                               ("live", warm.live, plain.live)):
+                if not torch.equal(x.cpu(), y):
+                    raise AssertionError(f"phase 12 (d) [B={b}]: kernel #10 and plain disagree on {name}")
+            log(f"phase 12 (d) [{card}]: plain version at B = {b}, w = {w}: {plain_ms:.3f} ms a launch (host copies, "
+                f"{reps} launches), rows and state == the kernel's")
+            continue
+        timed = fresh()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for r in range(reps):
+            launch(timed, r)
+        end.record()
+        torch.cuda.synchronize()
+        event_ms = start.elapsed_time(end) / reps
+        if not torch.equal(timed.scalars, warm.scalars):
+            raise AssertionError(f"phase 12 (d) [w={w} B={b}]: replays of the same launches disagree")
+        traced = fresh()
+
+        def traced_launch(r):
+            nonlocal traced
+            if r == 0:  # each trace replays the same launches from a fresh state
+                traced = fresh()
+            launch(traced, r)
+
+        per_launch = kernel_launch_us(traced_launch, reps, "wtw_insert_kernel")
+        dev_ms, n_traced = device_ms(per_launch)
+        plens = [0] + rows[:, 0, 1].tolist()
+        window_ms = idle_ms = None
+        if len(per_launch) == reps:
+            ran = [plens[r + 1] > plens[r] for r in range(reps)]
+            window_ms = sum(t for t, x in zip(per_launch, ran) if x) / 1e3 / max(1, sum(ran))
+            idle_ms = sum(t for t, x in zip(per_launch, ran) if not x) / 1e3 / max(1, reps - sum(ran))
+        windows = int(warm.scalars[0, wtw_insert.WS_LIVE]) // hop
+        bound_ms, bound_by = multi_wtw_bound(w, k, reps, windows, width, b)
+        per_sm = lib.wtw_blocks_per_sm(w, 12)
+        out[(w, hop, b)] = (dev_ms, event_ms, bound_ms, bound_by, window_ms, idle_ms)
+        log(f"phase 12 (d) [{card}]: kernel #10, w = {w}, hop {hop}, k_block {k}, B = {b} "
+            f"({-(-b // (per_sm * sms))} wave(s) of {per_sm * sms} blocks): "
+            f"{'not measured' if dev_ms is None else f'{dev_ms:.4f} ms'} device time a launch (profiler, {n_traced} of "
+            f"{reps} launches traced), {event_ms:.4f} ms (CUDA events, back to back); launches that ran a window "
+            f"{'not measured' if window_ms is None else f'{window_ms:.4f} ms'}, that only appended "
+            f"{'not measured' if idle_ms is None else f'{idle_ms:.4f} ms'}; {windows} windows a stream in {reps} "
+            f"launches; bound {bound_ms:.7f} ms a launch by {bound_by}")
+    return out, plain_ms
+
+
+def phase_wtw_serving(device, root: str, card: str):
+    """Phase 12 (b)–(d); returns the kernels-line row of
+    wtw_multi_insert_block (its max_abs_err filled in by the caller) and
+    its extra keys."""
+    import numpy as np
+    import torch
+
+    from real_time_audio_sync_tpu_torch.eval import corpus, synthetic
+    from real_time_audio_sync_tpu_torch.features.chroma import wav_to_chroma
+    from real_time_audio_sync_tpu_torch.models import FusedWTW
+    from real_time_audio_sync_tpu_torch.ops import wtw_insert
+    from real_time_audio_sync_tpu_torch.parallel import FusedMultiStreamWTW
+    from real_time_audio_sync_tpu_torch.utils.wavio import load_wav
+
+    # (b) B listeners on one concert at the live app's widths
+    t0 = time.perf_counter()
+    d = os.path.join(root, "sonata_allegro")
+    ref_wav = os.path.join(d, "sonata_allegro_00.wav")
+    pcms = [load_wav(os.path.join(d, f"sonata_allegro_0{i}.wav"))[0] for i in (1, 2)]
+    buffers = [[pcm[s : s + 2048] for s in range(0, len(pcm), 2048)] for pcm in pcms]
+    b = WTW_SERVING_STREAMS
+    perf = np.arange(b) % 2  # even streams follow _01, odd streams _02
+    log(card)
+    log(f"phase 12 (b): FusedMultiStreamWTW, shared reference sonata_allegro_00, {b} streams, even on _01 "
+        f"({len(buffers[0])} buffers), odd on _02 ({len(buffers[1])}), stream i joins at hop i, w = 100, hop 50, "
+        f"as fast as the host allows")
+    ms, paths, launches, wall = wtw_serving_run(ref_wav, buffers, perf, 8, "float32", device, "phase 12 (b)")
+    for p in (0, 1):
+        if not paths[p] or not all(paths[i] == paths[p] for i in range(p, b, 2)):
+            raise AssertionError(f"phase 12 (b): the {'even' if p == 0 else 'odd'} streams' paths differ")
+    for i in (0, 1, b - 2, b - 1):
+        solo = FusedWTW(ref_wav, LIVE_APP_WTW, device=device)
+        for buf in buffers[perf[i]]:
+            solo.insert(buf)
+        solo.flush()
+        if solo.path != paths[i] or solo.pointers != ms.pointers()[i]:
+            raise AssertionError(f"phase 12 (b): stream {i} differs from a solo FusedWTW on the card fed the same")
+    t1 = time.perf_counter()
+    plain_path = plain_wtw_path(ref_wav, pcms[0], wtw_columns(pcms[0], device), ms._state.ref[0], WTW_PLAIN_HOPS)
+    if len(plain_path) == 0 or not np.array_equal(plain_path, np.asarray(paths[0][: len(plain_path)])):
+        raise AssertionError("phase 12 (b): stream 0's path does not begin with the CPU plain engine's")
+    log(f"phase 12 (b): the even streams' paths all equal ({len(paths[0])} points), the odd streams' all equal "
+        f"({len(paths[1])}); streams 0, 1, {b - 2}, {b - 1} == a solo FusedWTW on the card; stream 0 begins with "
+        f"the CPU plain engine's {len(plain_path)} points over the first {WTW_PLAIN_HOPS} hops (a cut), "
+        f"{time.perf_counter() - t1:.1f} s; {time.perf_counter() - t0:.1f} s into (b)")
+    for n in WTW_FRONTEND_BATCHES:
+        frontend_forms(pcms, n, device, card)
+    log(f"phase 12 (b): {time.perf_counter() - t0:.1f} s into (b)")
+    trace_ms = FusedMultiStreamWTW([ref_wav] * b, LIVE_APP_WTW, transfer_dtype="float32", device=device)
+    trace_run(lambda: serve_wtw(trace_ms, buffers, perf, WTW_SERVING_TRACE_HOPS),
+              f"phase 12 (b) [trace, first {WTW_SERVING_TRACE_HOPS} hops]")
+    del trace_ms
+    log(f"phase 12 (b): {time.perf_counter() - t0:.1f} s into (b)")
+    kc = WTW_CHROMA_K_BLOCK
+    ms32, paths32, _, _ = wtw_serving_run(ref_wav, buffers, perf, kc, "chroma", device, f"phase 12 (b) [k_block {kc}]")
+    moved = [sum(x != y for x, y in zip(p, q)) + abs(len(p) - len(q)) for p, q in zip(paths32, paths)]
+    log(f"phase 12 (b) [k_block {kc}, host chroma]: points that differ from the float32 path: stream 0 {moved[0]} of "
+        f"{len(paths[0])}, stream 1 {moved[1]} of {len(paths[1])}, all streams {sum(moved)} of "
+        f"{sum(len(p) for p in paths)} (host chroma moves points on held chords; not required equal)")
+    del ms, ms32
+    log(f"phase 12 (b): {time.perf_counter() - t0:.1f} s")
+
+    # (c) the WTW corpus sweep: the full-scale corpus's 18 pairs as one run
+    t2 = time.perf_counter()
+    log(card)
+    sweep_root = os.path.join(root, "wtw_sweep")  # the pieces alone, without the concert
+    os.makedirs(sweep_root, exist_ok=True)
+    for piece in synthetic.FULL_PIECES:
+        os.symlink(os.path.join(root, piece), os.path.join(sweep_root, piece))
+    corpus._FEAT_CACHE.clear()
+    torch.cuda.synchronize()
+    wtw_insert.launches = wtw_insert.multi_launches = 0
+    t3 = time.perf_counter()
+    report = corpus.CorpusRunner(sweep_root, "wtw", mode="fused", device=device).evaluate(verbose=False)
+    torch.cuda.synchronize()
+    sweep_wall = time.perf_counter() - t3
+    sweep_launches = wtw_insert.multi_launches
+    if wtw_insert.launches != 0 or sweep_launches == 0 or len(report.results) != len(corpus.corpus_pairs(sweep_root)):
+        raise AssertionError(f"phase 12 (c): {len(report.results)} pairs, launches (kernel #9, kernel #10) "
+                             f"({wtw_insert.launches}, {sweep_launches})")
+    corpus._FEAT_CACHE.clear()
+    solo_wall = 0.0
+    for r in report.results:
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        solo = corpus.align_pair(r.ref_wav, r.live_wav, "wtw", mode="fused", device=device)
+        torch.cuda.synchronize()
+        solo_wall += time.perf_counter() - t4
+        if len(r.path) == 0 or not np.array_equal(r.path, solo.path):
+            raise AssertionError(f"phase 12 (c): {os.path.basename(r.live_wav)}: the sweep's path != solo align_pair")
+    buckets = {t: float(np.mean([r.score.pct_off_beats[t] for r in report.results])) for t in (1, 3, 5, 10)}
+    log(f"phase 12 (c) [{card}]: CorpusRunner(wtw, mode='fused') over {len(report.results)} pairs (w = 20, "
+        f"B = {len(report.results)}, mixed references): wall {sweep_wall:.3f} s, {sweep_launches} launches of kernel "
+        f"#10; the {len(report.results)} solo align_pair(wtw, fused) runs {solo_wall:.3f} s in all (memo cleared before "
+        f"each); every "
+        f"pair's path == solo; mean % of points > 1/3/5/10 beats off {buckets}, mean error (% > 3 s) "
+        f"{report.mean_error:.3f}; {time.perf_counter() - t2:.1f} s")
+
+    # (d) kernel #10's time
+    ref = wav_to_chroma(ref_wav, np.float32, device=device)
+    timing, plain_ms = phase_wtw_multi_time(device, ref, wtw_columns(pcms[0], device), card)
+    dev_ms, event_ms, bound_ms, bound_by, window_ms, idle_ms = timing[(100, 50, WTW_SERVING_STREAMS)]
+    row = (launches + sweep_launches, None, dev_ms, event_ms, plain_ms, bound_ms, bound_by)
+    return row, {"batch": WTW_SERVING_STREAMS, "plain_batch": WTW_MULTI_PLAIN_BATCH, "window_ms": window_ms,
+                 "append_only_ms": idle_ms, "serving_launches": launches, "sweep_launches": sweep_launches}
+
+
 def otw_insert_bound_ms(c: int = PARAMS["c"], k: int = 8, f: int = 12) -> float:
     """Bytes of one k_block-k launch at band c over the memory rate: the
     window in and out, the k columns in and live rows out, the k + c + 1
@@ -2183,7 +2692,12 @@ def main() -> int:
 
             warnings.simplefilter("ignore", WTWLongReferenceWarning)
             wtw_row, wtw_extra = phase_wtw_main_path(device, root, card)
-        log(f"phase 11: {time.perf_counter() - t11:.1f} s in all")
+            log(f"phase 11: {time.perf_counter() - t11:.1f} s in all")
+            t12 = time.perf_counter()
+            log(card)
+            multi_wtw_err = phase_wtw_multi_vs_plain(device)
+            multi_wtw_row, multi_wtw_extra = phase_wtw_serving(device, root, card)
+        log(f"phase 12: {time.perf_counter() - t12:.1f} s in all")
 
     # "ms" is each kernel's device time per launch (profiler; the CUDA-event
     # time when the trace holds none); otw_insert_block's at k_block 8,
@@ -2195,6 +2709,7 @@ def main() -> int:
     rows["otw_insert_block_long"] = concert
     rows.update(serving)
     rows["wtw_insert_block"] = wtw_row[:1] + (wtw_err,) + wtw_row[2:]
+    rows["wtw_multi_insert_block"] = multi_wtw_row[:1] + (multi_wtw_err,) + multi_wtw_row[2:]
     kernels = []
     for name, (n_launch, err, d_ms, e_ms, p_ms, b_ms, b_by) in rows.items():
         _, source, replaces = KERNELS[name]
@@ -2210,6 +2725,8 @@ def main() -> int:
             kernels[-1].update(batch=SERVING_STREAMS, plain_batch=MULTI_PLAIN_BATCH)
         if name == "wtw_insert_block":  # the main path's windows, and the device time of the two kinds of launch
             kernels[-1].update(wtw_extra)
+        if name == "wtw_multi_insert_block":  # B streams a launch; the launches of (b) and (c); the two kinds
+            kernels[-1].update(multi_wtw_extra)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -14,12 +14,13 @@ Ported so far: ``engine="dtw"`` (offline DTW, the wavefront kernels on a
 CUDA device), ``mode="fused"`` of the online engines (otw, livenote,
 livenote_v2, livenote_v2_diff: whole-pair set_live, the set_live kernel on
 a CUDA device; a corpus sweep of two or more pairs is one batched
-launch), and ``engine="wtw"`` in ``align_pair`` with modes "fused" (the
-fused WTW kernel) and "oracle" (the host ``WTW``).  What is not ported yet
-raises ``NotImplementedError`` naming its ROADMAP.md item: the online
-engines' streaming insert mode (Queue 1 item 1), WTW's insert mode and its
-fused mode above 128-frame windows (both ``AsyncWTW``, item 7c), and WTW
-corpus sweeps (items 7b and 7c).
+launch), and ``engine="wtw"`` with modes "fused" (the fused WTW kernel;
+a corpus sweep of two or more pairs is one ``FusedMultiStreamWTW`` run,
+one launch a block for every pair) and "oracle" (the host ``WTW``).  What
+is not ported yet raises ``NotImplementedError`` naming its ROADMAP.md
+item: the online engines' streaming insert mode (Queue 1 item 1), and
+WTW's insert mode and its fused mode above 128-frame windows (both
+``AsyncWTW``, item 7c).
 """
 
 from __future__ import annotations
@@ -245,16 +246,17 @@ class CorpusReport:
 
 class CorpusRunner:
     """``test_all`` parity (tests.py:199-262), on ``device``: every present
-    pair through :func:`align_pair` in turn — or, for an online engine in
-    ``mode="fused"`` with two or more pairs, all of them through one
-    batched set_live launch."""
+    pair through :func:`align_pair` in turn — or, in ``mode="fused"`` with
+    two or more pairs, all of them at once: an online engine through one
+    batched set_live launch, WTW as the streams of one
+    :class:`~real_time_audio_sync_tpu_torch.parallel.FusedMultiStreamWTW`."""
 
     def __init__(self, recordings_dir: str, engine: str = "dtw", params: Optional[dict] = None,
                  dtype=np.float32, mode: str = "insert", *, device="cuda"):
-        if engine == "wtw":
+        if engine == "wtw" and mode == "insert":
             raise NotImplementedError(
-                "CorpusRunner(engine='wtw'): WTW corpus sweeps are not ported yet: the batched fused sweep "
-                "is ROADMAP.md Queue 1, item 7b, the insert mode (AsyncWTW) item 7c")
+                "CorpusRunner(engine='wtw', mode='insert') runs AsyncWTW, which is not ported yet: "
+                "ROADMAP.md Queue 1, item 7c")
         self.recordings_dir = recordings_dir
         self.engine = engine
         self.params = params
@@ -272,7 +274,12 @@ class CorpusRunner:
             else:
                 skipped.append((ref_wav, live_wav))
 
-        if self.engine in ENGINE_OVERRIDES and self.mode == "fused" and len(present) > 1:
+        if self.engine == "wtw" and self.mode == "fused" and len(present) > 1:
+            # the whole sweep as ONE multi-stream run: every pair a stream,
+            # one launch a block for all; per-pair paths equal solo
+            # align_pair's (tested)
+            results = self._evaluate_wtw_batched(present, verbose)
+        elif self.engine in ENGINE_OVERRIDES and self.mode == "fused" and len(present) > 1:
             # online engines: the whole sweep in ONE launch, a grid over
             # pairs; per-pair paths equal solo align_pair's (tested)
             results = self._evaluate_online_batched(present, verbose)
@@ -327,6 +334,38 @@ class CorpusRunner:
         results = []
         for (ref_wav, live_wav), (path, _, _, _) in zip(pairs, aligned):
             result = PairResult(ref_wav, live_wav, self.engine, path, PathScorer.for_pair(ref_wav, live_wav).score(path))
+            results.append(result)
+            if verbose:
+                self._print_result(result)
+        return results
+
+    def _evaluate_wtw_batched(self, pairs: List[Tuple[str, str]], verbose: bool) -> List[PairResult]:
+        """All pairs through one :class:`FusedMultiStreamWTW` (k_block 8) on
+        their references, each stream fed its live recording in the
+        harness's ``np.array_split(live, 4096)`` chunks (tests.py:186),
+        ``None`` once they run out; per-pair paths equal solo
+        :func:`align_pair` ``(engine="wtw", mode="fused")``."""
+        from real_time_audio_sync_tpu_torch.config import WTWParams
+        from real_time_audio_sync_tpu_torch.ops.wtw_insert import MAX_W
+        from real_time_audio_sync_tpu_torch.parallel import FusedMultiStreamWTW
+
+        if np.dtype(self.dtype) != np.float32:
+            raise ValueError("mode='fused' runs the float32 device backends")
+        p = self.params or DEFAULT_WTW_PARAMS
+        wp = WTWParams.from_any(p)
+        if wp.dtw_win_size // wp.hop_size > MAX_W:
+            raise NotImplementedError(
+                f"a WTW sweep at a {wp.dtw_win_size // wp.hop_size}-frame window runs MultiStreamWTW, which is "
+                "not ported yet: ROADMAP.md Queue 1, item 7c")
+        ms = FusedMultiStreamWTW([r for r, _ in pairs], p, k_block=8, transfer_dtype="float32", device=self.device)
+        chunks = [np.array_split(_cached("audio", live_wav, np.float64, self.device), 4096) for _, live_wav in pairs]
+        for t in range(max(len(c) for c in chunks)):
+            ms.insert([c[t] if t < len(c) else None for c in chunks])
+        ms.flush()
+        results = []
+        for (ref_wav, live_wav), path in zip(pairs, ms.paths()):
+            result = PairResult(ref_wav, live_wav, self.engine, np.asarray(path),
+                                PathScorer.for_pair(ref_wav, live_wav).score(path))
             results.append(result)
             if verbose:
                 self._print_result(result)

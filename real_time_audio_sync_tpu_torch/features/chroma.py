@@ -264,6 +264,24 @@ def frame_span(x: torch.Tensor, t: int, n_fft: int, hop: int) -> torch.Tensor:
     return x.unfold(0, n_fft, hop)[:t]
 
 
+def chroma_spans_tiled(spans: torch.Tensor, t: int, n_fft: int = FFT_LEN, hop: int = HOP_SIZE, fs: int = FS,
+                       streams=None) -> torch.Tensor:
+    """(B, span) sample spans of B streams → (B, t, 12) live columns: each
+    stream's span framed by :func:`frame_span` and extracted by
+    :func:`chroma_frames_tiled` on that stream alone, so stream b's columns
+    are bit for bit what a solo engine extracts from the same span.
+    ``streams``: the streams to extract (default all); the other streams'
+    rows are zero.
+
+    One product batched over every stream's tiles would keep each row's
+    bits only if the matrix library ran every batch entry as the same
+    8-row product; the per-stream form keeps them by construction."""
+    out = spans.new_zeros((spans.shape[0], t, 12))
+    for b in range(spans.shape[0]) if streams is None else streams:
+        out[b] = chroma_frames_tiled(frame_span(spans[b], t, n_fft, hop), n_fft, fs).T
+    return out
+
+
 def chroma_pipeline(wav: torch.Tensor, n_fft: int = FFT_LEN, hop: int = HOP_SIZE, fs: int = FS, normalize: bool = True) -> torch.Tensor:
     """Full wav → (12, T) chroma pipeline on the wav's device."""
     t = num_frames(wav.shape[0], n_fft, hop)

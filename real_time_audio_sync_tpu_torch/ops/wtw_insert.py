@@ -1,5 +1,6 @@
-"""K hop columns of streaming WTW per launch: the CUDA kernel's wrapper, its
-plain PyTorch version, the window cost, and the engine state layout.
+"""K hop columns of streaming WTW per launch, for one stream or a grid of B:
+the CUDA kernel's wrappers, their plain PyTorch versions, the window cost,
+and the engine state layouts.
 
 Replaces the TPU kernel ``real_time_audio_sync_tpu/ops/pallas_wtw.py``
 ``_pallas_wtw_insert_block`` (:360; kernel ``_make_wtw_kernel`` :122,
@@ -15,6 +16,12 @@ stop comes before the increment; the margin stop is
 ``ref_ptr >= m-1-w or live_ptr >= n_cap-1-w``; a window is due when
 ``chroma_ptr - live_ptr >= w``; stopped streams and columns past
 ``n_valid`` are no-ops.
+
+TPU kernel #10, ``_pallas_multi_wtw_insert_block`` (:408), is the same
+kernel over a grid of B thread blocks (:func:`multi_wtw_insert_block`):
+block b is stream b, on its own reference length, live capacity and
+column count from a device (B, 3) array, the reference shared (stored
+once) or stacked (:class:`MultiWTWState`).
 
 Layout: the reference (M, F) and the whole live history (2M, F) stay in
 device memory as rows; the TPU kernel's sliding live window, its realign
@@ -251,3 +258,136 @@ def wtw_insert_block_reference(state: WTWState, cols: torch.Tensor, lens, w: int
                     (WS_LASTX, lastx), (WS_LASTY, lasty)):
         state.scalars[slot] = v
     row.copy_(torch.tensor([fl, plen, lastx, lasty, 0, 0, 0, 0] + dx + dy, dtype=torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# B streams per launch (TPU kernel #10)
+# ---------------------------------------------------------------------------
+
+#: launches of the B-stream grid (:func:`multi_wtw_insert_block`) in this
+#: process; the plain version does not count
+multi_launches = 0
+
+
+@dataclasses.dataclass
+class MultiWTWState:
+    """B streams' state, one launch for all; every tensor lies on one
+    device, and stream b's rows are :class:`WTWState`'s layout:
+
+    - ``ref`` (R, m_max, F) f32: R = 1, one reference every stream reads,
+      or R = B, one per stream zero-padded to the longest (stream b reads
+      its own first m_b rows);
+    - ``live`` (B, n_cap_max, F) f32: each stream's whole live history;
+    - ``scalars`` (B, 16) int32: slots ``WS_*``."""
+
+    ref: torch.Tensor
+    live: torch.Tensor
+    scalars: torch.Tensor
+
+    @property
+    def batch(self) -> int:
+        return self.live.shape[0]
+
+    def stream(self, b: int) -> WTWState:
+        """Stream b's state as views of the batch."""
+        return WTWState(ref=self.ref[0 if self.ref.shape[0] == 1 else b], live=self.live[b], scalars=self.scalars[b])
+
+
+def new_multi_state(refs, n_caps) -> MultiWTWState:
+    """Fresh state for B streams on the references' device: ``refs`` is a
+    list of (F, m_b) reference chromas, one per stream (the same tensor
+    object B times is stored once and shared), ``n_caps`` each stream's
+    live capacity; every scalar starts at 0."""
+    b = len(refs)
+    if b == 0 or len(n_caps) != b:
+        raise ValueError(f"need one live capacity per reference, got {len(n_caps)} for {b}")
+    shared = all(r is refs[0] for r in refs)
+    f = refs[0].shape[0]
+    dev = refs[0].device
+    m_max = max(r.shape[1] for r in refs)
+    ref = torch.zeros((1 if shared else b, m_max, f), dtype=torch.float32, device=dev)
+    for i, r in enumerate(refs[:1] if shared else refs):
+        ref[i, : r.shape[1]] = r.T
+    return MultiWTWState(
+        ref=ref,
+        live=torch.zeros((b, int(max(n_caps)), f), dtype=torch.float32, device=dev),
+        scalars=torch.zeros((b, N_SCALARS), dtype=torch.int32, device=dev),
+    )
+
+
+def _check_multi(state: MultiWTWState, cols: torch.Tensor, lens: torch.Tensor, w: int, hop_frames: int,
+                 k_block: int, rows: torch.Tensor) -> None:
+    b = state.batch
+    f = state.ref.shape[-1]
+    _require({
+        "ref": (state.ref, torch.float32, None),
+        "live": (state.live, torch.float32, None),
+        "scalars": (state.scalars, torch.int32, (b, N_SCALARS)),
+        "cols": (cols, torch.float32, None),
+        "lens": (lens, torch.int32, (b, 3)),
+        "rows": (rows, torch.int32, (b, delta_width(w, hop_frames, k_block))),
+    }, cols.device)
+    if not 1 <= w <= MAX_W:
+        raise ValueError(f"window of {w} frames: the kernel takes 1..{MAX_W}")
+    if hop_frames < 1:
+        raise ValueError(f"hop_frames {hop_frames} must be >= 1")
+    if state.ref.ndim != 3 or state.ref.shape[0] not in (1, b):
+        raise ValueError(f"ref must be (1 or {b}, rows, F), got {tuple(state.ref.shape)}")
+    if state.live.ndim != 3 or state.live.shape[2] != f:
+        raise ValueError(f"live must be ({b}, rows, {f}), got {tuple(state.live.shape)}")
+    if cols.ndim != 3 or cols.shape[0] != b or cols.shape[2] != f or cols.shape[1] > k_block:
+        raise ValueError(f"cols must be ({b}, k <= {k_block}, {f}), got {tuple(cols.shape)}")
+
+
+def multi_wtw_insert_block(state: MultiWTWState, cols: torch.Tensor, lens: torch.Tensor, w: int, hop_frames: int,
+                           k_block: int, rows: torch.Tensor) -> None:
+    """:func:`wtw_insert_block` for each of B streams in one launch: stream
+    b appends the first ``lens[b, 2]`` rows of ``cols[b]`` (``cols`` (B, k,
+    F), k ≤ k_block) and runs its due windows on its own reference length
+    ``lens[b, 0]`` and live capacity ``lens[b, 1]`` (``lens`` (B, 3) int32
+    on the state's device), writing its ``[status | dx | dy]`` into row b
+    of ``rows`` (B, :func:`delta_width`).  A stream with no column appends
+    nothing and still writes its status.
+
+    CUDA tensors launch the kernel over a grid of B blocks (counted in
+    :data:`multi_launches`); CPU tensors run
+    :func:`multi_wtw_insert_block_reference`.  Nothing falls back: a failed
+    build or launch raises."""
+    global multi_launches
+    if cols.device.type == "cpu":
+        multi_wtw_insert_block_reference(state, cols, lens, w, hop_frames, k_block, rows)
+        return
+    _check_multi(state, cols, lens, w, hop_frames, k_block, rows)
+    if cols.device.type != "cuda":
+        raise ValueError(f"no wtw_insert kernel for device {cols.device}")
+    from real_time_audio_sync_tpu_torch.ops import _build
+
+    lib = _build.load("wtw_insert").lib
+    b, f = state.batch, state.ref.shape[2]
+    spec = WTW_SPEC
+    table = _step_table(spec)
+    ref_stride = 0 if state.ref.shape[0] == 1 else state.ref.shape[1] * f  # shared: 0
+    with torch.cuda.device(cols.device):
+        stream = torch.cuda.current_stream(cols.device).cuda_stream
+        err = lib.wtw_multi_insert_block(
+            state.ref.data_ptr(), state.live.data_ptr(), state.scalars.data_ptr(), rows.data_ptr(),
+            cols.data_ptr(), lens.data_ptr(), b, state.ref.shape[1], state.live.shape[1], cols.shape[1],
+            w, hop_frames, f, wtw_geometry(w, hop_frames, k_block)[2],
+            *(_KIND[s] for s in spec.steps), *(float(x) for x in spec.weights), *spec.codes, spec.corner_code,
+            *(di for di, _ in table), *(dj for _, dj in table),
+            ref_stride, state.live.shape[1] * f, rows.shape[1], stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"wtw_multi_insert_block launch failed (B={b}, w={w}): "
+                           f"{lib.wtw_error_string(err).decode()}")
+    multi_launches += 1
+
+
+def multi_wtw_insert_block_reference(state: MultiWTWState, cols: torch.Tensor, lens: torch.Tensor, w: int,
+                                     hop_frames: int, k_block: int, rows: torch.Tensor) -> None:
+    """Plain PyTorch version of the batched launch, on any device:
+    :func:`wtw_insert_block_reference` over each stream's views, so it
+    equals the solo plain version stream by stream by construction."""
+    _check_multi(state, cols, lens, w, hop_frames, k_block, rows)
+    for b, (m, n_cap, n_valid) in enumerate(lens.tolist()):
+        wtw_insert_block_reference(state.stream(b), cols[b], (m, n_cap, n_valid), w, hop_frames, k_block, rows[b])

@@ -32,49 +32,107 @@ import numpy as np
 import torch
 
 from real_time_audio_sync_tpu_torch.config import OTWParams
+from real_time_audio_sync_tpu_torch.features.chroma import torch_dtype
 from real_time_audio_sync_tpu_torch.models.fused_streaming import _DELTA_STACK, fold_delta_tail, iter_delta_rows
 from real_time_audio_sync_tpu_torch.models.online_core import ENGINE_OVERRIDES, OnlineConfig
 from real_time_audio_sync_tpu_torch.ops import otw_insert
 from real_time_audio_sync_tpu_torch.ops.otw_insert import N_STATUS, S_PLEN
 from real_time_audio_sync_tpu_torch.parallel.polling import BatchedStatusPolling
 
-#: pinned host slots of the column staging ring (each guarded by the event
+#: pinned host slots of the staging ring (each guarded by the event
 #: of the copy that last read it)
 _STAGING_SLOTS = 8
 
 
-class _ColumnStaging:
-    """One dispatch's columns (B, k, F) f32 and counts (B,) int32 in one
-    pinned host slot, shipped to the card with ONE asynchronous copy into a
-    device buffer (stream-ordered behind the previous launch that read it).
-    A slot is rewritten only after the event recorded behind its last copy
-    has completed: ``_drain`` may dispatch past ``max_in_flight``, so the
-    ring's size alone does not guarantee it."""
+class PinnedStaging:
+    """One dispatch's host arrays (any dtypes and shapes) in one pinned host
+    slot of raw bytes, shipped to the card with ONE asynchronous copy into a
+    device buffer (stream-ordered behind the previous launch that read it),
+    and handed back as device tensors of the same dtypes and shapes.  A slot
+    is rewritten only after the event recorded behind its last copy has
+    completed: a follower may dispatch past ``max_in_flight``, so the ring's
+    size alone does not guarantee it."""
 
-    def __init__(self, b: int, k_block: int, f: int, device: torch.device):
-        n = b * k_block * f + b
-        self.f = f
-        self.host = [torch.empty(n, dtype=torch.float32, pin_memory=True) for _ in range(_STAGING_SLOTS)]
+    _ALIGN = 16  # bytes: each array starts on a boundary every dtype's view accepts
+
+    def __init__(self, nbytes: int, device: torch.device):
+        self.host = [torch.empty(nbytes, dtype=torch.uint8, pin_memory=True) for _ in range(_STAGING_SLOTS)]
         self.events: list = [None] * _STAGING_SLOTS
-        self.dev = torch.empty(n, dtype=torch.float32, device=device)
+        self.dev = torch.empty(nbytes, dtype=torch.uint8, device=device)
         self.slot = 0
 
-    def put(self, block: np.ndarray, ks: np.ndarray):
-        b, k = block.shape[:2]
-        n_cols = b * k * self.f
+    @classmethod
+    def nbytes(cls, *arrays_bytes: int) -> int:
+        """Slot size for arrays of these byte sizes."""
+        return sum(-(-n // cls._ALIGN) * cls._ALIGN for n in arrays_bytes)
+
+    def put(self, *arrays: np.ndarray):
         i, self.slot = self.slot, (self.slot + 1) % _STAGING_SLOTS
         if self.events[i] is not None:
             self.events[i].synchronize()
         view = self.host[i].numpy()
-        view[:n_cols] = block.reshape(-1)
-        view[n_cols : n_cols + b].view(np.int32)[:] = ks
-        self.dev[: n_cols + b].copy_(self.host[i][: n_cols + b], non_blocking=True)
+        placed, off = [], 0
+        for a in arrays:
+            a = np.ascontiguousarray(a)
+            view[off : off + a.nbytes] = a.reshape(-1).view(np.uint8)
+            placed.append((off, a))
+            off += -(-a.nbytes // self._ALIGN) * self._ALIGN
+        self.dev[:off].copy_(self.host[i][:off], non_blocking=True)
         self.events[i] = torch.cuda.Event()
         self.events[i].record()
-        return self.dev[:n_cols].view(b, k, self.f), self.dev[n_cols : n_cols + b].view(torch.int32)
+        return tuple(self.dev[o : o + a.nbytes].view(torch_dtype(a.dtype)).view(a.shape) for o, a in placed)
 
 
-class FusedMultiStreamFollower(BatchedStatusPolling):
+class DeltaPathDrain:
+    """Mixin: B streams' committed paths drained from per-launch delta rows
+    ``[status | dx | dy]`` (status slot 1 the stream's cumulative path
+    length), kept on the host as flat chunks of points with their stream
+    index, in dispatch order within each stream.  The subclass sets
+    ``self.b`` and ``self._deltas`` (the pending rows, as
+    ``fold_delta_tail`` keeps them)."""
+
+    def _reset_host_paths(self, paths: Optional[list] = None) -> None:
+        """Set the drained host paths to ``paths`` (one (P_b, 2) array per
+        stream; None: empty)."""
+        paths = [np.zeros((0, 2), np.int32)] * self.b if paths is None else paths
+        counts = [len(p) for p in paths]
+        pts = np.concatenate([np.asarray(p, np.int32).reshape(-1, 2) for p in paths])
+        self._host_keys = [np.repeat(np.arange(self.b), counts)]
+        self._host_x, self._host_y = [pts[:, 0]], [pts[:, 1]]
+        self._drained_plen = np.asarray(counts, np.int64)
+
+    def _drain_deltas(self) -> None:
+        """Move every pending launch's committed points into the host paths
+        (waits for in-flight launches), vectorised over streams and
+        launches: launch m's row of stream b holds ``plen_m − plen_{m−1}``
+        new points.  Zero-commit rows — a stream with no column in the
+        launch, a frozen post-stop stream, LiveNoteV2's guard — repeat
+        ``plen`` and add nothing (serving.py:467-481)."""
+        for rows in iter_delta_rows(self._deltas):
+            rows = rows.reshape(rows.shape[0], self.b, -1)  # (M, B, 8 + 2·d_pad)
+            d_pad = (rows.shape[-1] - N_STATUS) // 2
+            plens = rows[:, :, 1].astype(np.int64)  # (M, B), monotone per stream
+            n_new = plens - np.concatenate([self._drained_plen[None], plens[:-1]])
+            take = (np.arange(d_pad) < n_new[..., None]).transpose(1, 0, 2)  # (B, M, d_pad)
+            self._host_x.append(rows[:, :, N_STATUS : N_STATUS + d_pad].transpose(1, 0, 2)[take])
+            self._host_y.append(rows[:, :, N_STATUS + d_pad :].transpose(1, 0, 2)[take])
+            self._host_keys.append(np.repeat(np.arange(self.b), take.sum(axis=(1, 2))))
+            self._drained_plen = np.maximum(self._drained_plen, plens[-1])
+
+    def _host_paths(self) -> List[np.ndarray]:
+        """Drain, then each stream's (P_b, 2) int32 path."""
+        self._drain_deltas()
+        keys = np.concatenate(self._host_keys)
+        order = np.argsort(keys, kind="stable")  # stream-major, dispatch order within a stream
+        pts = np.stack([np.concatenate(self._host_x)[order], np.concatenate(self._host_y)[order]], axis=1)
+        pts = pts.astype(np.int32)
+        counts = np.bincount(keys, minlength=self.b)
+        self._host_keys = [np.repeat(np.arange(self.b), counts)]  # keep the merged chunk
+        self._host_x, self._host_y = [pts[:, 0].copy()], [pts[:, 1].copy()]
+        return np.split(pts, np.cumsum(counts)[:-1])
+
+
+class FusedMultiStreamFollower(DeltaPathDrain, BatchedStatusPolling):
     """Follow ``B`` live performances with the fused K-insert kernel, one
     launch per hop block for the whole batch.
 
@@ -138,7 +196,8 @@ class FusedMultiStreamFollower(BatchedStatusPolling):
             self._delta_len = otw_insert.delta_width(self.cfg, self.k_block)
             self._deltas: list = []  # (status, dx, dy) (B, 1, X) views or folded stacks
             self._reset_host_paths()
-        self._staging = _ColumnStaging(self.b, self.k_block, self.f, self.device) if self.device.type == "cuda" else None
+        self._staging = (PinnedStaging(PinnedStaging.nbytes(self.b * self.k_block * self.f * 4, self.b * 4), self.device)
+                         if self.device.type == "cuda" else None)
 
         # columnar pending queue (serving.py:386-398): one (B, cap, F) buffer
         # with per-stream counts.  _drain dispatches whenever any stream holds
@@ -218,37 +277,6 @@ class FusedMultiStreamFollower(BatchedStatusPolling):
             self._record_status(self._state.status)
         self.poll()
 
-    # -- the windowed layout's host paths ------------------------------------
-
-    def _reset_host_paths(self, paths: Optional[list] = None) -> None:
-        """Set the drained host paths to ``paths`` (one (P_b, 2) array per
-        stream; None: empty).  They are kept as flat chunks of points with
-        their stream index, in dispatch order within each stream."""
-        paths = [np.zeros((0, 2), np.int32)] * self.b if paths is None else paths
-        counts = [len(p) for p in paths]
-        pts = np.concatenate([np.asarray(p, np.int32).reshape(-1, 2) for p in paths])
-        self._host_keys = [np.repeat(np.arange(self.b), counts)]
-        self._host_x, self._host_y = [pts[:, 0]], [pts[:, 1]]
-        self._drained_plen = np.asarray(counts, np.int64)
-
-    def _drain_deltas(self) -> None:
-        """Move every pending launch's committed points into the host paths
-        (waits for in-flight launches), vectorised over streams and
-        launches: launch m's row of stream b holds ``plen_m − plen_{m−1}``
-        new points.  Zero-commit rows — a stream with no column in the
-        launch, a frozen post-stop stream, LiveNoteV2's guard — repeat
-        ``plen`` and add nothing (serving.py:467-481)."""
-        for rows in iter_delta_rows(self._deltas):
-            rows = rows.reshape(rows.shape[0], self.b, -1)  # (M, B, 8 + 2·d_pad)
-            d_pad = (rows.shape[-1] - N_STATUS) // 2
-            plens = rows[:, :, 1].astype(np.int64)  # (M, B), monotone per stream
-            n_new = plens - np.concatenate([self._drained_plen[None], plens[:-1]])
-            take = (np.arange(d_pad) < n_new[..., None]).transpose(1, 0, 2)  # (B, M, d_pad)
-            self._host_x.append(rows[:, :, N_STATUS : N_STATUS + d_pad].transpose(1, 0, 2)[take])
-            self._host_y.append(rows[:, :, N_STATUS + d_pad :].transpose(1, 0, 2)[take])
-            self._host_keys.append(np.repeat(np.arange(self.b), take.sum(axis=(1, 2))))
-            self._drained_plen = np.maximum(self._drained_plen, plens[-1])
-
     # -- status --------------------------------------------------------------
 
     def poll(self) -> np.ndarray:
@@ -296,15 +324,7 @@ class FusedMultiStreamFollower(BatchedStatusPolling):
         """Per-stream committed paths, (P_b, 2) int32 each (waits for the
         device; the windowed layout drains every pending launch's rows)."""
         if self.long_ref:
-            self._drain_deltas()
-            keys = np.concatenate(self._host_keys)
-            order = np.argsort(keys, kind="stable")  # stream-major, dispatch order within a stream
-            pts = np.stack([np.concatenate(self._host_x)[order], np.concatenate(self._host_y)[order]], axis=1)
-            pts = pts.astype(np.int32)
-            counts = np.bincount(keys, minlength=self.b)
-            self._host_keys = [np.repeat(np.arange(self.b), counts)]  # keep the merged chunk
-            self._host_x, self._host_y = [pts[:, 0].copy()], [pts[:, 1].copy()]
-            return np.split(pts, np.cumsum(counts)[:-1])
+            return self._host_paths()
         st = self._state
         plens = st.scalars[:, S_PLEN].cpu().numpy()
         m = int(plens.max()) if self.b else 0

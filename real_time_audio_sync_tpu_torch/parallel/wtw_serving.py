@@ -1,0 +1,284 @@
+"""Multi-stream WTW serving: follow B concurrent raw-audio performances on
+one card with one kernel launch per hop block (the JAX package's
+``parallel/wtw_serving.py`` ``FusedMultiStreamWTW``, :386-616).
+
+Users: one card following many listeners, each with a microphone, against
+one concert (the reference stored once), and WTW corpus sweeps, which run
+every pair of a corpus as one stream of the same engine
+(``eval/corpus.CorpusRunner(engine="wtw", mode="fused")``).
+
+Each launch is ``ops/wtw_insert.multi_wtw_insert_block``: the WTW kernel
+over a grid of B thread blocks, one per stream (TPU kernel #10), each on
+its own reference length, live capacity and column count, read from a
+device (B, 3) array that goes up with the block's payload in one copy.
+Per-stream delta rows ``[status | dx | dy]`` fold on the device and drain
+into host paths vectorised over streams (``parallel/serving.DeltaPathDrain``).
+
+The live columns: ``"float32"`` and ``"int16"`` sample spans run the
+port's device frontend stream by stream in the solo engines' fixed tiles
+(``features/chroma.chroma_spans_tiled``), so each stream's columns, and so
+its path, are a solo ``FusedWTW``'s whatever the other streams are fed;
+``"chroma"`` packs the valid frames of every stream into one host
+extraction, as the JAX engine does; ``"auto"`` resolves through
+``parallel/transfer.py``.
+
+Not ported yet: ``MultiStreamWTW`` (the vmapped XLA engine, and so windows
+above 128 frames) waits for ROADMAP.md Queue 1 item 7c; ``mesh=`` (stream
+sharding over several cards) for item 9.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from real_time_audio_sync_tpu_torch.config import FS, WTWParams
+from real_time_audio_sync_tpu_torch.features.chroma import chroma_from_samples, chroma_spans_tiled, host_chroma_frames
+from real_time_audio_sync_tpu_torch.models.fused_streaming import _DELTA_STACK, fold_delta_tail
+from real_time_audio_sync_tpu_torch.models.wtw import SampleFIFO, _check_ref_window
+from real_time_audio_sync_tpu_torch.models.wtw_async import build_span
+from real_time_audio_sync_tpu_torch.ops import wtw_insert
+from real_time_audio_sync_tpu_torch.ops.wtw_insert import WS_CHROMA, WS_LIVE, WS_REF
+from real_time_audio_sync_tpu_torch.parallel.polling import BatchedStatusPolling
+from real_time_audio_sync_tpu_torch.parallel.serving import DeltaPathDrain, PinnedStaging
+from real_time_audio_sync_tpu_torch.utils.wavio import load_wav
+
+
+class FusedMultiStreamWTW(DeltaPathDrain, BatchedStatusPolling):
+    """B concurrent raw-audio WTW streams on the fused kernel's grid.
+
+    ``refs``: per-stream reference recordings (wav paths or 1-D sample
+    arrays); identical entries (by path, or by object identity for arrays)
+    are extracted once, and when one reference is left it is stored once
+    on the card.  ``ref_chromas``: precomputed (12, m) chromagrams, one per
+    stream or one for all.  :meth:`insert` takes one sample buffer per
+    stream (``None`` for no new audio); a block dispatches whenever any
+    stream holds ``k_block`` hop columns, every other stream contributing
+    what it has, so a stream's path does not depend on how the others are
+    fed.  :meth:`flush` dispatches the ragged tails and waits;
+    :meth:`paths`, :meth:`pointers` and :attr:`stopped` read per-stream
+    results (each waits for the card).
+
+    Memory: each stream keeps its whole live history on the card, 2·m rows
+    of 12 float32 (about 2.3 MB a stream on a 24,456-frame concert), where
+    the JAX engine keeps a sliding window flat in reference length (336
+    rows of 128 lanes at w = 100, k_block 8: about 170 KB); a ring of live
+    rows in the kernel is later work (ROADMAP.md).
+
+    The positional order is the JAX engine's.  ``interpret`` is recorded
+    and otherwise ignored (the device decides); ``mesh`` must be None;
+    ``device`` is where the state lives and the kernel runs: a CUDA device
+    launches the kernel, ``"cpu"`` runs its plain version."""
+
+    def __init__(self, refs: Sequence, params, k_block: int = 8, mesh=None, transfer_dtype: str = "auto",
+                 ref_chromas: Optional[Sequence] = None, interpret: bool = False, *, device="cuda"):
+        if mesh is not None:
+            raise NotImplementedError("mesh=: stream sharding over several cards is not ported yet "
+                                      "(ROADMAP Queue 1 item 9)")
+        self.mesh = None
+        self.params = WTWParams.from_any(params)
+        self.k_block = int(k_block)
+        self.interpret = bool(interpret)
+        self.device = torch.device(device)
+        if transfer_dtype not in ("auto", "float32", "int16", "chroma"):
+            raise ValueError(f"unknown transfer_dtype {transfer_dtype!r}")
+        from real_time_audio_sync_tpu_torch.parallel.transfer import resolve_transfer_mode
+
+        self.transfer_dtype = resolve_transfer_mode(transfer_dtype, len(refs), self.k_block, self.params.fft_len,
+                                                    self.params.hop_size, device=self.device)
+        self.dtype = np.dtype(np.float32)  # the kernel is float32 only
+        self.fft_len = self.params.fft_len
+        self.hop_size = self.params.hop_size
+        self._w = self.params.dtw_win_size // self.hop_size
+        self._hop_frames = self.params.dtw_hop_size // self.hop_size
+        if self._w > wtw_insert.MAX_W:
+            raise ValueError(
+                f"window of {self._w} frames exceeds the fused kernel's {wtw_insert.MAX_W}-lane layout; "
+                "use MultiStreamWTW for larger windows (not ported yet: ROADMAP.md Queue 1, item 7c)")
+
+        chromas = self._ref_chromas(refs, ref_chromas)
+        self.b = len(chromas)
+        if self.b == 0:
+            raise ValueError("need at least one stream")
+        self.f = chromas[0].shape[0]
+        self.ms = np.asarray([c.shape[1] for c in chromas], np.int32)
+        for i, c in enumerate(chromas):
+            try:
+                _check_ref_window(c.shape[1], self.params)
+            except ValueError as e:
+                raise ValueError(f"stream {i}: {e}") from None
+        self.n_caps = (2 * self.ms).astype(np.int32)  # per-stream live capacity (wtw.py:52)
+        self._state = wtw_insert.new_multi_state(chromas, self.n_caps)
+        self._lens = np.stack([self.ms, self.n_caps, np.zeros(self.b, np.int32)], axis=1)  # [m, n_cap, n_valid]
+        self._delta_len = wtw_insert.delta_width(self._w, self._hop_frames, self.k_block)
+        self._deltas: list = []  # (status, dx, dy) (B, 1, X) views of a launch's rows, or folded stacks
+        self._reset_host_paths()
+
+        self.bufs = [SampleFIFO(self.dtype) for _ in range(self.b)]
+        self._stopped = np.zeros(self.b, bool)
+        self._span_len = (self.k_block - 1) * self.hop_size + self.fft_len
+        self._staging = None
+        if self.device.type == "cuda":
+            payload = {"chroma": 12 * self.k_block * 4, "int16": self._span_len * 2}.get(self.transfer_dtype,
+                                                                                         self._span_len * 4)
+            self._staging = PinnedStaging(PinnedStaging.nbytes(self.b * payload, self._lens.nbytes), self.device)
+        self._init_batched_polling()
+
+    def _ref_chromas(self, refs, ref_chromas) -> List[torch.Tensor]:
+        """One (12, m) float32 chroma tensor on the device per stream; the
+        same tensor object wherever two streams share a reference (by path,
+        or by object identity for arrays), as the JAX engine dedupes them
+        (wtw_serving.py:94-128)."""
+        if ref_chromas is not None:
+            if len(ref_chromas) == 1 and len(refs) > 1:
+                ref_chromas = list(ref_chromas) * len(refs)
+            if len(ref_chromas) != len(refs):
+                raise ValueError(f"ref_chromas has {len(ref_chromas)} entries for {len(refs)} streams")
+            memo = {}
+            for c in ref_chromas:
+                if id(c) not in memo:
+                    memo[id(c)] = torch.tensor(np.asarray(c, self.dtype), device=self.device)
+            return [memo[id(c)] for c in ref_chromas]
+        out, memo = [], {}
+        for r in refs:
+            key = r if isinstance(r, (str, bytes)) else id(r)
+            if key not in memo:
+                if isinstance(r, (str, bytes)):
+                    wav, fs = load_wav(r)
+                    assert fs == FS
+                else:
+                    wav = np.asarray(r)
+                memo[key] = chroma_from_samples(wav, dtype=self.dtype, device=self.device)
+            out.append(memo[key])
+        return out
+
+    # -- the block's payload (MultiStreamWTW, wtw_serving.py:214-260) --------
+
+    def _avail_cols(self, i: int) -> int:
+        n = len(self.bufs[i])
+        return 0 if n < self.fft_len else (n - self.fft_len) // self.hop_size + 1
+
+    def _spans(self, ks: np.ndarray) -> np.ndarray:
+        """The block's payload, consuming each stream's ``ks[i]`` columns of
+        samples: (B, span) raw samples (float32 or int16), or (B, 12,
+        k_block) host-extracted chroma for ``transfer_dtype="chroma"``,
+        the valid frames of every stream packed into one host extraction
+        (columns past a stream's count stay zero; the kernel masks them by
+        its n_valid)."""
+        if self.transfer_dtype == "chroma":
+            active = [(i, int(k)) for i, k in enumerate(ks) if k > 0]
+            out = np.zeros((self.b, 12, self.k_block), self.dtype)
+            if not active:
+                return out
+            frames = np.zeros((sum(k for _, k in active), self.fft_len), self.dtype)
+            row = 0
+            for i, k in active:
+                span = build_span(self.bufs[i], k, self.k_block, self.hop_size, self.fft_len, self.dtype)
+                stride = span.strides[0]
+                frames[row : row + k] = np.lib.stride_tricks.as_strided(
+                    span, shape=(k, self.fft_len), strides=(self.hop_size * stride, stride))
+                row += k
+            cols = host_chroma_frames(frames, n_fft=self.fft_len, overwrite_frames=True)
+            row = 0
+            for i, k in active:
+                out[i, :, :k] = cols[:, row : row + k]
+                row += k
+            return out
+        spans = np.zeros((self.b, self._span_len), self.dtype)
+        for i, k in enumerate(ks):
+            if k > 0:
+                spans[i] = build_span(self.bufs[i], int(k), self.k_block, self.hop_size, self.fft_len, self.dtype)
+        if self.transfer_dtype == "int16":
+            return np.clip(np.round(spans * 32768.0), -32768, 32767).astype(np.int16)
+        return spans
+
+    def _columns(self, payload: torch.Tensor, ks: np.ndarray) -> torch.Tensor:
+        """The block's (B, k_block, F) live columns on the device."""
+        if self.transfer_dtype == "chroma":
+            return payload.transpose(1, 2).contiguous()
+        if self.transfer_dtype == "int16":
+            payload = payload.to(torch.float32) / 32768.0
+        return chroma_spans_tiled(payload, self.k_block, self.fft_len, self.hop_size, FS,
+                                  streams=np.nonzero(ks)[0].tolist())
+
+    def _dispatch(self, ks: np.ndarray) -> None:
+        payload = self._spans(ks)
+        lens = self._lens.copy()
+        lens[:, 2] = ks
+        if self._staging is not None:
+            payload_t, lens_t = self._staging.put(payload, lens)
+        else:
+            payload_t, lens_t = torch.from_numpy(payload).to(self.device), torch.from_numpy(lens).to(self.device)
+        cols = self._columns(payload_t, ks)
+        # a fresh row block per launch: it stays pending until paths() drains it
+        rows = torch.empty((self.b, self._delta_len), dtype=torch.int32, device=self.device)
+        wtw_insert.multi_wtw_insert_block(self._state, cols, lens_t, self._w, self._hop_frames, self.k_block, rows)
+        views = wtw_insert.delta_views(rows[:, None])  # (B, 1, X) each: the JAX engine's row-shaped layout
+        self._deltas.append(views)
+        fold_delta_tail(self._deltas, _DELTA_STACK)
+        self._record_status(views[0])
+        self._poll()
+
+    # -- streaming API ---------------------------------------------------------
+
+    def _block_counts(self) -> np.ndarray:
+        return np.asarray([0 if self._stopped[i] else min(self._avail_cols(i), self.k_block)
+                           for i in range(self.b)], np.int32)
+
+    def insert(self, stream_bufs: Sequence) -> np.ndarray:
+        """Append raw samples per stream (``None``: no new audio) and
+        dispatch every full block; non-blocking.  Returns the stopped mask
+        as of the last consumed status (lazy, like the solo engines)."""
+        if len(stream_bufs) != self.b:
+            raise ValueError(f"expected {self.b} buffers, got {len(stream_bufs)}")
+        for i, buf in enumerate(stream_bufs):
+            if buf is not None and not self._stopped[i]:
+                self.bufs[i].extend(buf)
+        while True:
+            ks = self._block_counts()
+            if ks.max(initial=0) < self.k_block:
+                break
+            self._dispatch(ks)
+        self._poll()
+        return self._stopped.copy()
+
+    def flush(self) -> np.ndarray:
+        """Dispatch every stream's remaining whole hop columns and wait for
+        every launch; returns the final stopped mask."""
+        while True:
+            ks = self._block_counts()
+            if ks.max(initial=0) <= 0:
+                break
+            self._dispatch(ks)
+        self._poll(block=True)
+        return self._stopped.copy()
+
+    def _poll(self, block: bool = False) -> None:
+        if block:
+            self._settle_status()
+        else:
+            self._poll_status()
+
+    def _consume(self, vec: np.ndarray) -> None:
+        vec = vec.reshape(self.b, -1)  # (B, 8) status rows
+        self._stopped |= (vec[:, 0] & 1).astype(bool)
+        if (vec[:, 0] & 2).any():  # sticky in the kernel's scalar state
+            raise AssertionError("FusedMultiStreamWTW path delta overflow")
+
+    # -- inspection (each waits for the card) ----------------------------------
+
+    @property
+    def stopped(self) -> np.ndarray:
+        self._poll(block=True)
+        return self._stopped.copy()
+
+    def paths(self) -> List[List[tuple]]:
+        """Per-stream committed (live, ref) paths, as lists of tuples."""
+        return [list(zip(p[:, 0].tolist(), p[:, 1].tolist())) for p in self._host_paths()]
+
+    def pointers(self) -> List[Tuple[int, int, int]]:
+        """Per-stream (chroma_ptr, live_ptr, ref_ptr)."""
+        sc = self._state.scalars.cpu().numpy()
+        return [(int(s[WS_CHROMA]), int(s[WS_LIVE]), int(s[WS_REF])) for s in sc]

@@ -15,7 +15,9 @@ SMEM arrays row-shaped ``(B, 1, X)``) stream by stream over the same
 functions, into the port's ``MultiOTWState`` layout and back.  The
 ``fused_wtw_*`` functions carry a ``FusedWTW``'s state: JAX's sliding live
 window (rows on 128 lanes), 16 scalars and host path against the port's
-whole live history (n_cap, F), scalars and host path.  The reference
+whole live history (n_cap, F), scalars and host path; the
+``multi_fused_wtw_*`` functions carry a ``FusedMultiStreamWTW``'s stream by
+stream over them, each stream on its own reference length.  The reference
 features are not state (each engine builds them from the same chroma).
 """
 
@@ -222,3 +224,29 @@ def fused_wtw_state_to_jax(live, scalars, host_path, *, w: int, hop_frames: int,
         live_win[: cp - lp, : rows.shape[1]] = rows[lp:cp]
     sc[WS_BASE] = lp
     return live_win, sc, np.array(host_path, dtype=np.int32).reshape(-1, 2)
+
+
+def multi_fused_wtw_state_from_jax(live_win, scalars, host_paths, *, ms, f: int):
+    """A JAX ``FusedMultiStreamWTW``'s state (numpy: its live windows
+    ``_live_win`` (B, l_pad, 128), ``_scalars`` (B, 1, 16) and drained host
+    paths, one (P_b, 2) array per stream; drain its pending rows first) →
+    the port's ``(live, scalars, host_paths)``: CPU tensors (B, 2·m_max, F)
+    and (B, 16), and int32 arrays, stream by stream over
+    :func:`fused_wtw_state_from_jax` with each stream's own m."""
+    per = [fused_wtw_state_from_jax(np.asarray(live_win)[b], np.asarray(scalars)[b, 0], host_paths[b], m=int(m), f=f)
+           for b, m in enumerate(ms)]
+    live = torch.zeros((len(per), 2 * int(max(ms)), f), dtype=torch.float32)
+    for b, p in enumerate(per):
+        live[b, : p[0].shape[0]] = p[0]
+    return live, torch.stack([p[1] for p in per]), [p[2] for p in per]
+
+
+def multi_fused_wtw_state_to_jax(live, scalars, host_paths, *, w: int, hop_frames: int, k_block: int):
+    """The inverse of :func:`multi_fused_wtw_state_from_jax`: the port's
+    ``(live (B, n_cap_max, F), scalars (B, 16), host_paths)`` → the JAX
+    engine's ``(live_win (B, l_pad, 128), scalars (B, 1, 16),
+    host_paths)``, numpy, stream by stream over
+    :func:`fused_wtw_state_to_jax`."""
+    per = [fused_wtw_state_to_jax(live[b], scalars[b], host_paths[b], w=w, hop_frames=hop_frames, k_block=k_block)
+           for b in range(live.shape[0])]
+    return np.stack([p[0] for p in per]), np.stack([p[1] for p in per])[:, None], [p[2] for p in per]

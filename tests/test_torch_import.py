@@ -48,6 +48,17 @@ def test_chip_smoke_fails_without_a_card(tmp_path, alone):
     assert '"ok"' not in proc.stdout and '"kernels"' not in proc.stdout
 
 
+@pytest.mark.parametrize("module", ["parallel.wtw_serving"])
+def test_module_imports_alone_with_jax_blocked(module):
+    """A module imported on its own, with JAX blocked, pulls in neither
+    JAX nor the JAX package."""
+    code = (f"import sys; sys.modules['jax'] = None; import real_time_audio_sync_tpu_torch.{module}; "
+            "assert 'real_time_audio_sync_tpu' not in sys.modules; "
+            "assert not any(k.startswith('jax') for k, v in sys.modules.items() if v is not None); print('ok')")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, cwd=ROOT, timeout=300)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
 def test_no_source_line_imports_jax_or_the_jax_package():
     pattern = re.compile(r"^\s*(import|from)\s+(jax\b|real_time_audio_sync_tpu\b(?!_torch))", re.M)
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
@@ -59,6 +70,7 @@ ENTRY_POINTS = [
     ("streaming.runtime", "ScoreFollower"),
     ("models.fused_streaming", "FusedStreamingEngine"),
     ("parallel.serving", "FusedMultiStreamFollower"),
+    ("parallel.wtw_serving", "FusedMultiStreamWTW"),
     ("models.wtw", "WTW"),
     ("models.fused_wtw", "FusedWTW"),
     ("streaming.runtime", "WTWFollower"),
@@ -153,13 +165,20 @@ def _both(name):
         from real_time_audio_sync_tpu_torch.models.fused_wtw import FusedWTW as T
 
         return J(audio, WP, interpret=True), T(audio, WP, interpret=True, device="cpu")
+    if name == "FusedMultiStreamWTW":
+        from real_time_audio_sync_tpu.parallel import FusedMultiStreamWTW as J
+        from real_time_audio_sync_tpu_torch.parallel import FusedMultiStreamWTW as T
+
+        kw = {"transfer_dtype": "float32", "interpret": True}
+        return J([audio, audio], WP, **kw), T([audio, audio], WP, **kw, device="cpu")
     from real_time_audio_sync_tpu.models.wtw import WTW as J
     from real_time_audio_sync_tpu_torch.models.wtw import WTW as T
 
     return J(audio, WP), T(audio, WP, device="cpu")
 
 
-@pytest.mark.parametrize("name", ["FusedStreamingEngine", "FusedMultiStreamFollower", "FusedWTW", "WTW"])
+@pytest.mark.parametrize("name", ["FusedStreamingEngine", "FusedMultiStreamFollower", "FusedWTW", "WTW",
+                                  "FusedMultiStreamWTW"])
 def test_public_names_match_the_jax_objects(name):
     """The public ``dir()`` names (which hold the public ``vars()``) of an
     object built in both packages differ only by ``NAME_DIFFERENCES``; the
@@ -173,7 +192,8 @@ def test_public_names_match_the_jax_objects(name):
 
     differ = public(jax_obj) ^ public(port_obj)
     assert differ <= set(NAME_DIFFERENCES), sorted(differ - set(NAME_DIFFERENCES))
-    shared = {"dtype", "interpret", "mesh", "caps", "n_max", "k_block", "b", "ref_lens", "N", "M"}
+    shared = {"dtype", "interpret", "mesh", "caps", "n_max", "k_block", "b", "ref_lens", "N", "M", "f", "ms", "n_caps",
+              "fft_len", "hop_size", "transfer_dtype"}
     for attr in sorted(shared & public(jax_obj)):
         got, want = getattr(port_obj, attr), getattr(jax_obj, attr)
         assert np.array_equal(np.asarray(got), np.asarray(want)), attr

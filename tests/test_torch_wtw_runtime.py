@@ -168,8 +168,8 @@ def test_wtw_modes_that_wait_raise(cases):
     wide = dict(tcorpus.DEFAULT_WTW_PARAMS, dtw_win_size=4096 * 80)
     with pytest.raises(NotImplementedError, match="item 7c"):
         tcorpus.align_pair(ref, live, "wtw", wide, mode="fused", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7b"):
-        tcorpus.CorpusRunner(cases, "wtw", mode="fused", device="cpu")
+    with pytest.raises(NotImplementedError, match="item 7c"):
+        tcorpus.CorpusRunner(cases, "wtw", mode="insert", device="cpu")
     assert "wtw" not in tcorpus.PORTED_ENGINES
 
 
