@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (H100, sm_90a).
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --set-live-times [TREE]   # phase 9's set_live times alone
 
 Phases, each raising on failure (the process then exits non-zero):
 
@@ -44,10 +45,14 @@ Phases, each raising on failure (the process then exits non-zero):
    launch, CUDA events back to back, the plain version, and the bound.
 7. set_live kernel against plain, on the card — the whole-pair kernel on
    card-resident pairs and its plain version on host copies of them: 4 engine variants ×
-   bands c ∈ {10, 50, 200} × {live runs out, stop past the reference's end
-   with live ≈ 2.6× the reference, the 2N live-capacity halt}; a ragged
-   batch of 4 == each pair alone == plain; a shared reference × 3.  Path,
-   plen, t, j and stopped must be EQUAL.
+   bands c ∈ {10, 31, 32, 50, 63, 64, 200} (both sides of the warp's lane
+   edges, where a lane's band registers go from 1 to 2 and 2 to 4) × {live
+   runs out, stop past the reference's end with live ≈ 2.6× the reference,
+   the 2N live-capacity halt}; a ragged batch of 4 == each pair alone ==
+   plain; a shared reference × 3.  Path, plen, t, j and stopped must be
+   EQUAL.  So too the kernels for any feature width (F = 7, and F = 12 rows
+   not on a 16-byte boundary) at c ∈ {50, 238}, for otw and
+   livenote_v2_diff.
 8. fused corpus sweep main path — the full-scale synthetic corpus
    (``eval/synthetic.FULL_PIECES``: 8 pieces, 21 recordings, 18 pairs) through
    ``CorpusRunner(root, engine, band, mode="fused", device="cuda")`` for the
@@ -67,7 +72,9 @@ Phases, each raising on failure (the process then exits non-zero):
    status after every launch and the same points), and so both modes at the
    wide bands c ∈ {237, 238, 400} too (238 and 400 keep their window in
    global memory), with kernels #2 and #3 (solo and a batch of 3) at the
-   same bands and the two kernels' times across that edge;
+   same bands and at c ∈ {511, 512} (otw; 16 and 32 band registers a
+   lane), and the two kernels' times across that edge (set_live's µs per
+   band update also at c ∈ {50, 511, 512});
    (b) the eight ``_00`` recordings of ``FULL_PIECES`` back to back as the
    reference (~39 minutes, ~25,000 frames; beat CSVs joined) and their
    ``_01`` recordings, in the same order, as the live performance, through
@@ -220,6 +227,16 @@ LONG_PAIR_FRAMES = 12000
 # bands on both sides of the H100's shared-memory limit for the (c+1)² window
 # (c = 238 is the first that does not fit), and one far above it
 WIDE_BANDS = (237, 238, 400)
+# phase 7's set_live bands: phase 3's and both sides of the lane edges of the
+# warp kernel's band registers (32 and 64 positions)
+SET_LIVE_BANDS = (10, 31, 32, 50, 63, 64, 200)
+# phase 7's bands for the any-width set_live kernels: a window in shared
+# memory and one in a global workspace
+SET_LIVE_ANY_WIDTH_BANDS = (50, 238)
+# phase 9's widest set_live bands (16 and 32 band registers a lane), and the
+# bands at which it times set_live per band update
+SET_LIVE_WIDEST = (511, 512)
+SET_LIVE_TIMED_BANDS = (50, 200) + WIDE_BANDS + SET_LIVE_WIDEST
 # buffers of the concert follower traced by the profiler (a slice: a trace of
 # every hop holds ~10^6 events)
 TRACE_BUFFERS = 3000
@@ -790,11 +807,17 @@ def compare_set_live(refs, lives, cfg, what: str):
     version on host copies of them: raises unless path, plen, t, j and
     stopped are equal; returns (the kernel's out rows, the plain version's
     seconds, the largest absolute difference, 0 when equal)."""
+    from real_time_audio_sync_tpu_torch.ops import otw_set_live
+
+    return compare_packed(otw_set_live.pack(refs, lives, cfg.c), cfg, what)
+
+
+def compare_packed(packed, cfg, what: str):
+    """:func:`compare_set_live` on a batch already packed on the card."""
     import torch
 
     from real_time_audio_sync_tpu_torch.ops import otw_set_live
 
-    packed = otw_set_live.pack(refs, lives, cfg.c)
     kern = [x.cpu() for x in otw_set_live.batched_set_live(*packed, cfg)]
     packed = [x.cpu() for x in packed]
     t0 = time.perf_counter()
@@ -804,6 +827,17 @@ def compare_set_live(refs, lives, cfg, what: str):
         if not torch.equal(x, y):
             raise AssertionError(f"{what}: kernel and plain disagree on {name} (max |diff| {max_abs_diff(x, y)})")
     return kern[2].cpu().tolist(), plain_s, max(max_abs_diff(x, y) for x, y in zip(kern, plain))
+
+
+def misaligned(x):
+    """A contiguous copy of card tensor ``x`` whose base lies 4 bytes past
+    the allocation's start, so not on a 16-byte boundary."""
+    import torch
+
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    out = buf[1:].view(x.shape)
+    out.copy_(x)
+    return out
 
 
 def same_result(a, b) -> bool:
@@ -823,7 +857,7 @@ def phase_set_live_vs_plain(device) -> None:
     t0 = time.perf_counter()
     cases = 0
     for vi, variant in enumerate(VARIANTS):
-        for c in BANDS:
+        for c in SET_LIVE_BANDS:
             for si, scenario in enumerate(SET_LIVE_SCENARIOS):
                 rng = np.random.default_rng(7000 + 100 * vi + 10 * c + si)
                 ref, live = set_live_pair(rng, variant, c, scenario)
@@ -839,7 +873,29 @@ def phase_set_live_vs_plain(device) -> None:
                                          f"is not '{scenario}' for n {n}, live {n_live}")
                 cases += 1
     log(f"phase 7: set_live kernel == plain on the card in all {cases} cases ({len(VARIANTS)} variants x bands "
-        f"{BANDS} x {SET_LIVE_SCENARIOS}; path, plen, t, j, stopped equal), {time.perf_counter() - t0:.1f} s")
+        f"{SET_LIVE_BANDS} x {SET_LIVE_SCENARIOS}; path, plen, t, j, stopped equal), {time.perf_counter() - t0:.1f} s")
+
+    # the any-width kernels, which read the rows from device memory: feature
+    # width 7, and width-12 rows whose base is not 16-byte aligned, with the
+    # window in shared memory (c = 50) and in a global workspace (c = 238)
+    t1 = time.perf_counter()
+    cases = 0
+    for vi, variant in enumerate(("otw", "livenote_v2_diff")):
+        for c in SET_LIVE_ANY_WIDTH_BANDS:
+            rng = np.random.default_rng(7300 + 10 * vi + c)
+            ref, live = set_live_pair(rng, variant, c, "stop")
+            cfg = set_live_cfg(variant, c)
+            compare_set_live([torch.from_numpy(ref[:7].copy()).to(device)],
+                             [torch.from_numpy(live[:7].copy()).to(device)], cfg, f"phase 7 [{variant} c={c} F=7]")
+            packed = otw_set_live.pack([torch.from_numpy(ref).to(device)], [torch.from_numpy(live).to(device)], c)
+            shifted = [misaligned(x) for x in packed[:2]] + [packed[2]]
+            if any(x.data_ptr() % 16 == 0 for x in shifted[:2]):
+                raise AssertionError("phase 7: the shifted rows are 16-byte aligned")
+            compare_packed(shifted, cfg, f"phase 7 [{variant} c={c} rows not 16-byte aligned]")
+            cases += 2
+    log(f"phase 7: any-width set_live kernels == plain in all {cases} cases (otw, livenote_v2_diff x bands "
+        f"{SET_LIVE_ANY_WIDTH_BANDS} x {{F = 7, F = 12 at a base 4 bytes past 16-byte alignment}}), "
+        f"{time.perf_counter() - t1:.1f} s")
 
     params = {"c": 50, "max_run_count": 3}
     for vi, variant in enumerate(VARIANTS):
@@ -1099,7 +1155,7 @@ def phase_delta_vs_plain(device) -> None:
     import torch
 
     from real_time_audio_sync_tpu_torch.models.online_core import ENGINE_OVERRIDES, OnlineConfig
-    from real_time_audio_sync_tpu_torch.ops import otw_insert, otw_set_live
+    from real_time_audio_sync_tpu_torch.ops import otw_insert
 
     t0 = time.perf_counter()
     worst, streams = 0.0, 0
@@ -1125,7 +1181,7 @@ def phase_delta_vs_plain(device) -> None:
             cfg = OnlineConfig(c=c, max_run_count=3, **ENGINE_OVERRIDES[variant])
             ref, live = stream(rng, variant, c + 30, "stop")
             worst = max(worst, run_delta_stream(ref, live, cfg, 8, device, f"phase 9 [{variant} c={c} wide]"))
-    routes = window_routes((BANDS[-1],) + WIDE_BANDS, device)
+    routes = window_routes(SET_LIVE_TIMED_BANDS, device)
     if routes[238] != "global" or routes[400] != "global":
         raise AssertionError(f"phase 9: the wide bands did not take the global window: {routes}")
     log(f"phase 9: wide bands {WIDE_BANDS} (windows, as the band library chose them: {routes}): "
@@ -1135,7 +1191,7 @@ def phase_delta_vs_plain(device) -> None:
     t1 = time.perf_counter()
     cases = 0
     for vi, variant in enumerate(("otw", "livenote_v2_diff")):
-        for c in WIDE_BANDS:
+        for c in WIDE_BANDS + (SET_LIVE_WIDEST if variant == "otw" else ()):
             rng = np.random.default_rng(9700 + 10 * vi + c)
             ref, live = set_live_pair(rng, variant, c, "stop")
             compare_set_live([torch.from_numpy(ref).to(device)], [torch.from_numpy(live).to(device)],
@@ -1146,27 +1202,72 @@ def phase_delta_vs_plain(device) -> None:
     compare_set_live([torch.from_numpy(r).to(device) for r, _ in pairs], [torch.from_numpy(l).to(device) for _, l in pairs],
                      set_live_cfg("otw", WIDE_BANDS[-1]), f"phase 9 [batched set_live c={WIDE_BANDS[-1]} B=3]")
     log(f"phase 9: set_live kernel == plain at the wide bands: {cases} solo pairs (otw, livenote_v2_diff x "
-        f"{WIDE_BANDS}) and a ragged batch of 3 at c={WIDE_BANDS[-1]}, {time.perf_counter() - t1:.1f} s")
+        f"{WIDE_BANDS}; otw x {SET_LIVE_WIDEST}) and a ragged batch of 3 at c={WIDE_BANDS[-1]}, "
+        f"{time.perf_counter() - t1:.1f} s")
 
-    # what the global-memory window costs: kernels #1 and #2 across the edge
-    for c in (BANDS[-1],) + WIDE_BANDS:
+    # what the global-memory window costs: kernels #1 and #2 across the edge,
+    # and set_live's time per band update from the main path's band to the
+    # widest band registers
+    for c in SET_LIVE_TIMED_BANDS:
         rng = np.random.default_rng(9900 + c)
         cfg = OnlineConfig(c=c, max_run_count=3, **ENGINE_OVERRIDES["otw"])
         ref, live = stream(rng, "otw", c + 30, "stop")
         n = ref.shape[1]
-        rows = torch.from_numpy(np.ascontiguousarray(live.T)).to(device)
-        k, reps = 8, 16
-        state = otw_insert.new_state(torch.from_numpy(ref).to(device), cfg, 2 * n)
-        ins_ms = time_launches(lambda st, r, kk: otw_insert.insert_block(st, r, (2 * n, n, kk), cfg, kk),
-                               state, rows, k, reps)
-        ref_sl, live_sl = set_live_pair(rng, "otw", c, "stop")
-        packed = otw_set_live.pack([torch.from_numpy(ref_sl).to(device)], [torch.from_numpy(live_sl).to(device)], c)
-        sl_ms = time_calls(lambda: otw_set_live.batched_set_live(*packed, cfg), 5)
-        plen, t, j = otw_set_live.batched_set_live(*packed, cfg)[2][0, :3].tolist()
-        log(f"phase 9 [c={c}, window in {routes[c]} memory]: K-insert kernel "
-            f"{ins_ms:.4f} ms/launch at k_block {k} (CUDA events, {reps} launches, n={n}); set_live kernel "
-            f"{sl_ms:.4f} ms/pair (CUDA events, 5 calls; {t} x {j} frames, {t + j - 1} band updates, "
-            f"{plen} points, {sl_ms * 1e3 / max(t + j - 1, 1):.3f} us/update)")
+        insert = ""
+        if c in (BANDS[-1],) + WIDE_BANDS:
+            rows = torch.from_numpy(np.ascontiguousarray(live.T)).to(device)
+            k, reps = 8, 16
+            state = otw_insert.new_state(torch.from_numpy(ref).to(device), cfg, 2 * n)
+            ins_ms = time_launches(lambda st, r, kk: otw_insert.insert_block(st, r, (2 * n, n, kk), cfg, kk),
+                                   state, rows, k, reps)
+            insert = f"K-insert kernel {ins_ms:.4f} ms/launch at k_block {k} (CUDA events, {reps} launches, n={n}); "
+        log(f"phase 9 [c={c}, window in {routes[c]} memory]: {insert}{set_live_timing(rng, cfg, device)}")
+
+
+def set_live_timing(rng, cfg, device) -> str:
+    """The set_live kernel's time on one otw "stop" pair at band ``cfg.c``
+    drawn from ``rng``: ms a pair and µs a band update (CUDA events)."""
+    import torch
+
+    from real_time_audio_sync_tpu_torch.ops import otw_set_live
+
+    c = cfg.c
+    ref, live = set_live_pair(rng, "otw", c, "stop")
+    packed = otw_set_live.pack([torch.from_numpy(ref).to(device)], [torch.from_numpy(live).to(device)], c)
+    ms = time_calls(lambda: otw_set_live.batched_set_live(*packed, cfg), 5)
+    plen, t, j = otw_set_live.batched_set_live(*packed, cfg)[2][0, :3].tolist()
+    return (f"set_live kernel {ms:.4f} ms/pair (CUDA events, 5 calls; {t} x {j} frames, {t + j - 1} band updates, "
+            f"{plen} points, {ms * 1e3 / max(t + j - 1, 1):.3f} us/update)")
+
+
+def set_live_times(tree) -> int:
+    """``--set-live-times [TREE]``: phase 9's set_live timing alone, on the
+    same pairs, at every band of ``SET_LIVE_TIMED_BANDS``, with the port
+    imported from the checkout at ``TREE`` (another commit unpacked there,
+    built there) or from this one.  Prints the card, the package's path
+    and one line a band; exits 0."""
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
+        return 2
+    if tree is not None:
+        sys.path.insert(0, os.path.abspath(tree))
+    import real_time_audio_sync_tpu_torch
+    from real_time_audio_sync_tpu_torch.models.online_core import ENGINE_OVERRIDES, OnlineConfig
+
+    device = torch.device("cuda", 0)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True)
+    log(smi.stdout.strip().splitlines()[0])
+    log(f"set_live times of {os.path.dirname(real_time_audio_sync_tpu_torch.__file__)}")
+    for c in SET_LIVE_TIMED_BANDS:
+        rng = np.random.default_rng(9900 + c)
+        stream(rng, "otw", c + 30, "stop")  # phase 9 draws its K-insert stream first
+        cfg = OnlineConfig(c=c, max_run_count=3, **ENGINE_OVERRIDES["otw"])
+        log(f"[c={c}]: {set_live_timing(rng, cfg, device)}")
+    return 0
 
 
 def render_concert(root: str):
@@ -2736,4 +2837,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--set-live-times"]:
+        sys.exit(set_live_times(sys.argv[2] if len(sys.argv) > 2 else None))
     sys.exit(main())

@@ -7,18 +7,23 @@ Replaces the TPU kernels ``real_time_audio_sync_tpu/ops/pallas_otw.py``
 ``_pallas_batched_set_live`` (:505; public :func:`pallas_batched_set_live`,
 :554), both driven by ``_make_set_live_kernel`` (:296).  The CUDA source is
 ``csrc/otw_set_live.cu``: one kernel over a grid of B pairs, a solo pair
-being B = 1.  Its band primitives are the K-insert kernel's
+being B = 1.  Its per-cell numerics are the K-insert kernel's
 (``csrc/otw_band.cuh``), and :func:`set_live_reference` reuses
-``ops/otw_insert``'s plain ones, so both kernels and both plain versions
-compute every cell alike (numerics in ``ops/otw_insert.py``).
+``ops/otw_insert``'s plain band functions, so both kernels and both plain
+versions compute every cell alike (numerics in ``ops/otw_insert.py``).
 
-What bounds it on an H100: latency.  One pair is one thread block running
-a serial chain of about t + j band steps over a few KB of state; the
-pairs of a batch run side by side, each leaving on its own ``done``.
-Device memory holds the padded feature rows (read by the band cells) and
-receives the path points and scalars.  A band whose window does not fit
-in shared memory takes a global-memory workspace of one window per pair
-(``otw_insert.window_workspace``), in the same kernel.
+What bounds it on an H100: neither bytes nor operations but a chain of
+dependent steps.  One pair is t + j band updates in a row, each needing the
+last one's window and argmin, so the time is t + j times the latency of one
+update.  The kernel runs one warp per pair with the band's positions in
+registers (``csrc/otw_band_warp.cuh``): the min-plus scan and the argmins
+are register shuffles with no block barrier, the band's feature rows sit
+in shared-memory rings filled a step ahead, and the window stays in
+shared memory (or, for a band too wide for it, in a global-memory
+workspace of one window per pair, ``otw_insert.window_workspace``, in the
+same kernel).  :func:`warp_minplus_scan` models its scan's lane and
+register schedule on tensors for the tests.  The pairs of a
+batch run side by side, each leaving on its own ``done``.
 
 Layout (:func:`pack`): ``ref_rows`` (R, c + n_max, F) with c leading zero
 rows (row c+j ↔ reference frame j), R = 1 when every pair shares one
@@ -30,8 +35,8 @@ argmax and row-shaped SMEM blocks have no counterpart here.
 Every pair, of any length, takes this kernel.  The JAX package sends
 pairs of 12,000 or more combined frames to its streaming engine instead
 (pallas_otw.py:417-422), because its kernel holds whole sequences in
-VMEM; this kernel keeps only the window in shared memory and reads
-feature rows from device memory, so it needs no such route.  Its results
+VMEM; this kernel keeps only the window and the band's feature rows on
+chip and streams the rest from device memory, so it needs no such route.  Its results
 equal that route's (``tests/test_torch_set_live.py``).
 """
 
@@ -161,6 +166,53 @@ def batched_set_live(ref_rows: torch.Tensor, live_rows: torch.Tensor, lens: torc
         raise RuntimeError(f"otw_set_live launch failed (c={c}): {lib.otw_set_live_error_string(err).decode()}")
     launches += 1
     return path_x, path_y, out
+
+
+# ---------------------------------------------------------------------------
+# The kernel's scan schedule, modelled on tensors (for the tests)
+# ---------------------------------------------------------------------------
+
+
+def warp_minplus_scan(b: torch.Tensor, cost: torch.Tensor, c: int) -> torch.Tensor:
+    """The kernel's min-plus scan (``warp_minplus_scan`` in
+    ``csrc/otw_band_warp.cuh``) on (32, P) tensors: band position 32k + lane
+    at [lane, k], P the band's 32-position groups rounded up to a power of
+    two (``warp_band_regs``), positions above c holding ``inf``.  At a lane
+    shift s < 32 every lane takes register k of lane (lane − s) mod 32 (one
+    shuffle) when lane ≥ s and register k−1 of it otherwise (none for
+    k = 0); at s = 32q every register k ≥ q takes register k−q of its own
+    lane.  Every stage runs, as in the kernel: one with s > c changes only
+    positions above c.  The same stages and operands as
+    :func:`ops.otw_insert._minplus_doubling` on ``b``, ``cost`` (c+1,) for
+    every position up to c; returns the (c+1,) scan."""
+    regs = 1
+    while regs < (c + 32) // 32:
+        regs *= 2
+    if regs > 32:
+        raise ValueError(f"band c={c} is wider than one warp's 32 x 32 positions")
+
+    def lanes(x: torch.Tensor) -> torch.Tensor:
+        padded = torch.full((32 * regs,), float("inf"), dtype=x.dtype, device=x.device)
+        padded[: c + 1] = x
+        return padded.reshape(regs, 32).T
+
+    r, cv = lanes(b), lanes(cost)
+    lane = torch.arange(32, device=b.device)[:, None]
+    k = torch.arange(regs, device=b.device)[None, :]
+    for s in (1, 2, 4, 8, 16):
+        r_sh, c_sh = torch.roll(r, s, 0), torch.roll(cv, s, 0)  # __shfl_sync from lane (lane - s) & 31
+        same = lane >= s
+        r_src = torch.where(same, r_sh, torch.roll(r_sh, 1, 1))  # register k-1 of that lane
+        c_src = torch.where(same, c_sh, torch.roll(c_sh, 1, 1))
+        take = same | (k > 0)
+        r, cv = torch.where(take, torch.minimum(r, r_src + cv), r), torch.where(take, c_src + cv, cv)
+    q = 1
+    while q < regs:
+        r_src, c_src = torch.roll(r, q, 1), torch.roll(cv, q, 1)
+        take = k >= q
+        r, cv = torch.where(take, torch.minimum(r, r_src + cv), r), torch.where(take, c_src + cv, cv)
+        q *= 2
+    return r.T.reshape(-1)[: c + 1]
 
 
 # ---------------------------------------------------------------------------
