@@ -1,20 +1,26 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (H100, sm_90a).
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --set-live-times [TREE]   # phase 9's set_live times alone
+    python3 chip_smoke.py --band-times [TREE]   # the two band kernels' times alone (A/B)
 
 Phases, each raising on failure (the process then exits non-zero):
 
 1. device — the card's name, then ``nvidia-smi``'s name and power limit;
-2. build — ``nvcc`` builds every kernel of the port from ``csrc/``;
+2. build — ``nvcc`` builds every kernel of the port from ``csrc/``; each
+   instantiation of the one-warp K-insert kernel with its registers, stack
+   and spills from ptxas (a spill over 16 bytes fails), and the K-insert
+   launch's kernel at each band checked below (one warp with its rows in
+   rings or read from device memory, or the block kernel), with the blocks
+   an SM holds;
 3. kernel against plain, on the card — the K-insert kernel and its plain
    PyTorch version (on host copies, as in every comparison of phases 3 and
    7-10 but phase 10 (d)'s) run the same streams launch by launch (4 engine
    variants × bands c ∈ {10, 50, 200} × k_block ∈ {1, 8, 32}, with a stop
    past the end of the reference, and a live-capacity freeze at k_block
-   32); status, scalars, path, window and live history must be EQUAL (the
-   two share their operation order and round every step, so the tolerance
-   is zero);
+   32; then otw and livenote_v2_diff at the launch's route edges c ∈ {31,
+   32, 63, 64, 228, 229, 237, 238, 255, 256}); status, scalars, path,
+   window and live history must be EQUAL (the two share their operation order and
+   round every step, so the tolerance is zero);
 4. main path — the synthetic ``sonata_allegro`` piece (recording _00, 4.8
    minutes, is the reference; _01, 4.4 minutes, is the live performance)
    through ``ScoreFollower(fused=True, device="cuda")`` in 2048-sample
@@ -71,7 +77,10 @@ Phases, each raising on failure (the process then exits non-zero):
    scalars EQUAL; a whole-path kernel run alongside has the same state and
    status after every launch and the same points), and so both modes at the
    wide bands c ∈ {237, 238, 400} too (238 and 400 keep their window in
-   global memory), with kernels #2 and #3 (solo and a batch of 3) at the
+   global memory) and, for otw and livenote_v2_diff, at the route edges of
+   phase 3, with features of width 7 and width-12 rows 4 bytes off a
+   16-byte boundary at c ∈ {50, 233, 238} and streams fed 3 launches past their
+   stop and past their live capacity; kernels #2 and #3 (solo and a batch of 3) at the
    same bands and at c ∈ {511, 512} (otw; 16 and 32 band registers a
    lane), and the two kernels' times across that edge (set_live's µs per
    band update also at c ∈ {50, 511, 512});
@@ -95,7 +104,8 @@ Phases, each raising on failure (the process then exits non-zero):
    (a) the batched kernel against the batched plain version, launch by
    launch, over 4 variants × c ∈ {10, 50, 200, 238} × k_block ∈ {1, 8} ×
    both modes, each a ragged batch of 3 references of different lengths
-   with per-stream counts 0..k_block; a ragged B = 5 in which one stream
+   with per-stream counts 0..k_block, and so at phase 3's route edges (otw,
+   livenote_v2_diff, k_block 8); a ragged B = 5 in which one stream
    stops past its reference's end and one reaches the live-capacity freeze;
    a shared reference × 3.  Every stream's window, live rows, scalars,
    status, path buffers or delta rows EQUAL the plain version's and the
@@ -169,8 +179,10 @@ Phases, each raising on failure (the process then exits non-zero):
    append-only launches apart), CUDA events, the bound; the plain version
    at B = 4 from the same state, rows and states equal to the kernel's.
 
-The builds run in parallel (one ``nvcc`` per source).  Then one JSON line
-of per-kernel results, and last ``{"ok": true, "device": {...}}``.
+The builds run in parallel (one ``nvcc`` per source).  Then each phase's
+seconds, one JSON line of per-kernel results, and last ``{"ok": true,
+"device": {...}}``.  ``--band-times [TREE]`` only times the two band
+kernels (:func:`band_times`), for an A/B of two trees in one call.
 Without a CUDA device it exits non-zero before printing any result.
 """
 
@@ -237,6 +249,28 @@ SET_LIVE_ANY_WIDTH_BANDS = (50, 238)
 # bands at which it times set_live per band update
 SET_LIVE_WIDEST = (511, 512)
 SET_LIVE_TIMED_BANDS = (50, 200) + WIDE_BANDS + SET_LIVE_WIDEST
+# the K-insert kernel's route edges, each band on both sides: the one-warp
+# kernel's lane edges (1, 2, 4 band registers a lane), the home of its rows
+# beside a shared window on an H100 (228: the rings; 229: device memory),
+# the window's route (237: shared; 238: a global workspace, the rings
+# again), and its edge with the block kernel above 8 band registers a lane
+# (255: one warp; 256: the block kernel)
+INSERT_EDGE_BANDS = (31, 32, 63, 64, 228, 229, 237, 238, 255, 256)
+# the bands of the K-insert cases with features of width 7 (the block
+# kernel) and with width-12 rows 4 bytes past a 16-byte boundary (the rings
+# take them; where the rows would be read from device memory, the block
+# kernel): a shared window with the rows in rings (50) and without (233),
+# and a global one (238)
+INSERT_ANY_WIDTH_BANDS = (50, 233, 238)
+# launches fed to a stream after it stops or reaches its live capacity
+AFTER_LAUNCHES = 3
+# --band-times: the K-insert kernel's bands and k_blocks (0: a launch with no
+# insert, the fixed part), the reference of the delta mode's time (the
+# concert's length) and the grid's batches
+BAND_TIMED = (10, 50, 200, 229, 237, 238, 255, 256, 400)
+BAND_TIMED_K = (0, 1, 8, 32)
+CONCERT_FRAMES = 24456
+BAND_TIMED_BATCHES = (256, 1024)
 # buffers of the concert follower traced by the profiler (a slice: a trace of
 # every hop holds ~10^6 events)
 TRACE_BUFFERS = 3000
@@ -343,9 +377,35 @@ def compare_states(a, b, what: str) -> float:
     return float((wa[fin] - wb[fin]).abs().max()) if fin.any() else 0.0
 
 
-def phase_kernel_vs_plain(device) -> float:
+def run_whole_stream(ref, live, cfg, k_block: int, device, what: str):
+    """One stream through the kernel in whole-path mode and its plain version
+    on host copies, launch by launch (status, scalars, path, window and live
+    history EQUAL).  Returns (the window's largest |diff|, launches, the
+    final scalars)."""
     import numpy as np
     import torch
+
+    from real_time_audio_sync_tpu_torch.ops import otw_insert
+
+    n = ref.shape[1]
+    cap = 2 * n
+    kern = otw_insert.new_state(torch.from_numpy(ref).to(device), cfg, cap)
+    plain = clone_state(kern, "cpu")
+    rows = torch.from_numpy(np.ascontiguousarray(live.T)).to(device)
+    worst, n_launches = 0.0, 0
+    for s in range(0, rows.shape[0], k_block):
+        block = rows[s : s + k_block]
+        lens = (cap, n, block.shape[0])
+        otw_insert.insert_block(kern, block, lens, cfg, k_block)
+        otw_insert.insert_block_reference(plain, block.cpu(), lens, cfg, k_block)
+        torch.cuda.synchronize()
+        worst = max(worst, compare_states(kern, plain, f"{what} @col {s}"))
+        n_launches += 1
+    return worst, n_launches, kern.scalars.cpu()
+
+
+def phase_kernel_vs_plain(device) -> float:
+    import numpy as np
 
     from real_time_audio_sync_tpu_torch.models.online_core import ENGINE_OVERRIDES, OnlineConfig
     from real_time_audio_sync_tpu_torch.ops import otw_insert
@@ -365,20 +425,10 @@ def phase_kernel_vs_plain(device) -> float:
                     # while t runs through the startup band and past 2n
                     n_ref = 3 * c + 30 if scenario == "capacity" else c + 30
                     ref, live = stream(rng, variant, n_ref, scenario)
-                    n = ref.shape[1]
-                    cap = 2 * n
-                    kern = otw_insert.new_state(torch.from_numpy(ref).to(device), cfg, cap)
-                    plain = clone_state(kern, "cpu")
-                    rows = torch.from_numpy(np.ascontiguousarray(live.T)).to(device)
-                    for s in range(0, rows.shape[0], k_block):
-                        block = rows[s : s + k_block]
-                        lens = (cap, n, block.shape[0])
-                        otw_insert.insert_block(kern, block, lens, cfg, k_block)
-                        otw_insert.insert_block_reference(plain, block.cpu(), lens, cfg, k_block)
-                        torch.cuda.synchronize()
-                        worst = max(worst, compare_states(kern, plain, f"{variant} c={c} k={k_block} {scenario} @col {s}"))
-                        n_launches += 1
-                    sc = kern.scalars.cpu()
+                    cap = 2 * ref.shape[1]
+                    err, n, sc = run_whole_stream(ref, live, cfg, k_block, device,
+                                                  f"{variant} c={c} k={k_block} {scenario}")
+                    worst, n_launches = max(worst, err), n_launches + n
                     if scenario == "stop" and sc[otw_insert.S_STOPPED] != 1:
                         raise AssertionError(f"{variant} c={c} k={k_block}: stream did not stop")
                     if scenario == "capacity" and not (sc[otw_insert.S_T] >= cap and sc[otw_insert.S_STOPPED] == 0):
@@ -386,6 +436,22 @@ def phase_kernel_vs_plain(device) -> float:
     log(f"phase 3: kernel == plain on the card over {len(VARIANTS)} variants x bands {BANDS} x "
         f"k_block {K_BLOCKS} (+ capacity freeze at k_block 32): {n_launches} launches compared, "
         f"window max |diff| {worst}, {time.perf_counter() - t0:.1f} s")
+
+    # the route edges of the launch (the one-warp kernel's lane edges, the
+    # edges of its rows' and window's homes, and its edge with the block
+    # kernel), for the dot and the Euclidean cost
+    t1 = time.perf_counter()
+    n_launches = 0
+    for vi, variant in enumerate(("otw", "livenote_v2_diff")):
+        for c in INSERT_EDGE_BANDS:
+            rng = np.random.default_rng(3000 + 1000 * vi + c)
+            ref, live = stream(rng, variant, c + 30, "stop")
+            err, n, sc = run_whole_stream(ref, live, set_live_cfg(variant, c), 8, device, f"{variant} c={c} k=8 edge")
+            worst, n_launches = max(worst, err), n_launches + n
+            if sc[otw_insert.S_STOPPED] != 1:
+                raise AssertionError(f"phase 3 [{variant} c={c}]: stream did not stop")
+    log(f"phase 3: kernel == plain at the route edges {INSERT_EDGE_BANDS} (otw, livenote_v2_diff, k_block 8): "
+        f"{n_launches} launches compared, {time.perf_counter() - t1:.1f} s")
     return worst
 
 
@@ -1083,13 +1149,15 @@ def delta_row(cfg, k_block: int, device):
     return torch.empty(otw_insert.delta_width(cfg, k_block), dtype=torch.int32, device=device)
 
 
-def run_delta_stream(ref, live, cfg, k_block: int, device, what: str) -> float:
+def run_delta_stream(ref, live, cfg, k_block: int, device, what: str, misalign: bool = False):
     """One stream through the kernel in delta mode and its plain version,
     launch by launch (status, delta row, window, live history and scalars
     equal), beside the kernel in whole-path mode, whose state and status
     must equal the delta-mode kernel's after every launch and whose path
     must hold the rows' points — so both modes are held to the plain
-    version.  Returns the window's largest |diff| (0.0)."""
+    version.  ``misalign``: both kernels' reference and live rows start 4
+    bytes past a 16-byte boundary.  Returns the window's largest |diff|
+    (0.0) and the final scalars."""
     import numpy as np
     import torch
 
@@ -1101,6 +1169,11 @@ def run_delta_stream(ref, live, cfg, k_block: int, device, what: str) -> float:
     kern = otw_insert.new_state(ref_t, cfg, cap, whole_path=False)
     plain = clone_state(kern, "cpu")
     whole = otw_insert.new_state(ref_t, cfg, cap)
+    if misalign:
+        for st in (kern, whole):
+            st.ref, st.live = misaligned(st.ref), misaligned(st.live)
+            if st.ref.data_ptr() % 16 == 0 or st.live.data_ptr() % 16 == 0:
+                raise AssertionError(f"{what}: the shifted rows are 16-byte aligned")
     rows = torch.from_numpy(np.ascontiguousarray(live.T)).to(device)
     points, worst = [], 0.0
     for s in range(0, rows.shape[0], k_block):
@@ -1128,7 +1201,7 @@ def run_delta_stream(ref, live, cfg, k_block: int, device, what: str) -> float:
     want = torch.stack([whole.path_x[:plen], whole.path_y[:plen]], dim=1)
     if not torch.equal(torch.cat(points), want):
         raise AssertionError(f"{what}: the delta rows' points differ from the whole-path kernel's path")
-    return worst
+    return worst, kern.scalars.cpu()
 
 
 def window_routes(bands, device) -> dict:
@@ -1168,7 +1241,7 @@ def phase_delta_vs_plain(device) -> None:
                     cfg = OnlineConfig(c=c, max_run_count=mrc, **ENGINE_OVERRIDES[variant])
                     ref, live = stream(rng, variant, 3 * c + 30 if scenario == "capacity" else c + 30, scenario)
                     worst = max(worst, run_delta_stream(ref, live, cfg, k_block, device,
-                                                        f"phase 9 [{variant} c={c} k={k_block} {scenario}]"))
+                                                        f"phase 9 [{variant} c={c} k={k_block} {scenario}]")[0])
                     streams += 1
     log(f"phase 9: delta-mode kernel == plain on the card over {len(VARIANTS)} variants x bands {BANDS} x "
         f"k_block {K_BLOCKS} (+ capacity freeze at k_block 32): {streams} streams, window max |diff| {worst}, "
@@ -1180,13 +1253,15 @@ def phase_delta_vs_plain(device) -> None:
             rng = np.random.default_rng(9500 + 10 * vi + c)
             cfg = OnlineConfig(c=c, max_run_count=3, **ENGINE_OVERRIDES[variant])
             ref, live = stream(rng, variant, c + 30, "stop")
-            worst = max(worst, run_delta_stream(ref, live, cfg, 8, device, f"phase 9 [{variant} c={c} wide]"))
-    routes = window_routes(SET_LIVE_TIMED_BANDS, device)
+            worst = max(worst, run_delta_stream(ref, live, cfg, 8, device, f"phase 9 [{variant} c={c} wide]")[0])
+    routes = window_routes(SET_LIVE_TIMED_BANDS + INSERT_EDGE_BANDS, device)
     if routes[238] != "global" or routes[400] != "global":
         raise AssertionError(f"phase 9: the wide bands did not take the global window: {routes}")
     log(f"phase 9: wide bands {WIDE_BANDS} (windows, as the band library chose them: {routes}): "
         f"K-insert kernel == plain in both modes for {len(VARIANTS)} variants, k_block 8, "
         f"{time.perf_counter() - t1:.1f} s")
+
+    phase_delta_edges(device)
 
     t1 = time.perf_counter()
     cases = 0
@@ -1224,6 +1299,52 @@ def phase_delta_vs_plain(device) -> None:
         log(f"phase 9 [c={c}, window in {routes[c]} memory]: {insert}{set_live_timing(rng, cfg, device)}")
 
 
+def phase_delta_edges(device) -> None:
+    """Phase 9 (a): the K-insert kernel's route edges in both modes;
+    features of width 7 (the block kernel) and width-12 rows 4 bytes past a
+    16-byte boundary; streams fed more launches after they stop and after
+    they reach their live capacity."""
+    import numpy as np
+
+    from real_time_audio_sync_tpu_torch.ops import otw_insert
+
+    t1 = time.perf_counter()
+    worst = 0.0
+    cases = 0
+    for vi, variant in enumerate(("otw", "livenote_v2_diff")):
+        for c in INSERT_EDGE_BANDS:
+            rng = np.random.default_rng(9200 + 1000 * vi + c)
+            ref, live = stream(rng, variant, c + 30, "stop")
+            worst = max(worst, run_delta_stream(ref, live, set_live_cfg(variant, c), 8, device,
+                                                f"phase 9 [{variant} c={c} edge]")[0])
+            cases += 1
+        for c in INSERT_ANY_WIDTH_BANDS:
+            rng = np.random.default_rng(9300 + 1000 * vi + c)
+            ref, live = stream(rng, variant, c + 30, "stop")
+            cfg = set_live_cfg(variant, c)
+            run_delta_stream(np.ascontiguousarray(ref[:7]), np.ascontiguousarray(live[:7]), cfg, 8, device,
+                             f"phase 9 [{variant} c={c} F=7]")
+            run_delta_stream(ref, live, cfg, 8, device, f"phase 9 [{variant} c={c} rows not 16-byte aligned]",
+                             misalign=True)
+            # past the stop and past the live capacity: more launches, frozen
+            extra = unit_cols(rng.random((12, 8 * AFTER_LAUNCHES)) + 0.05)
+            _, sc = run_delta_stream(ref, np.concatenate([live, extra], axis=1), cfg, 8, device,
+                                     f"phase 9 [{variant} c={c} after the stop]")
+            if sc[otw_insert.S_STOPPED] != 1:
+                raise AssertionError(f"phase 9 [{variant} c={c}]: the stream did not stop")
+            ref, live = stream(rng, variant, 3 * c + 30, "capacity")
+            live = np.concatenate([live, live[:, -1:].repeat(8 * AFTER_LAUNCHES, axis=1)], axis=1)
+            _, sc = run_delta_stream(ref, live, set_live_cfg(variant, c, 5), 8, device,
+                                     f"phase 9 [{variant} c={c} after the live capacity]")
+            if not (sc[otw_insert.S_T] >= 2 * ref.shape[1] + 8 * AFTER_LAUNCHES and sc[otw_insert.S_STOPPED] == 0):
+                raise AssertionError(f"phase 9 [{variant} c={c}]: the capacity freeze was not passed ({sc.tolist()})")
+            cases += 4
+    log(f"phase 9: K-insert kernel == plain in both modes in {cases} cases (otw, livenote_v2_diff x route edges "
+        f"{INSERT_EDGE_BANDS}; x bands {INSERT_ANY_WIDTH_BANDS} x {{F = 7, F = 12 rows 4 bytes past 16-byte "
+        f"alignment, {AFTER_LAUNCHES} launches past the stop, {AFTER_LAUNCHES} past the live capacity}}), "
+        f"window max |diff| {worst}, {time.perf_counter() - t1:.1f} s")
+
+
 def set_live_timing(rng, cfg, device) -> str:
     """The set_live kernel's time on one otw "stop" pair at band ``cfg.c``
     drawn from ``rng``: ms a pair and µs a band update (CUDA events)."""
@@ -1240,12 +1361,121 @@ def set_live_timing(rng, cfg, device) -> str:
             f"{plen} points, {ms * 1e3 / max(t + j - 1, 1):.3f} us/update)")
 
 
-def set_live_times(tree) -> int:
-    """``--set-live-times [TREE]``: phase 9's set_live timing alone, on the
-    same pairs, at every band of ``SET_LIVE_TIMED_BANDS``, with the port
-    imported from the checkout at ``TREE`` (another commit unpacked there,
-    built there) or from this one.  Prints the card, the package's path
-    and one line a band; exits 0."""
+def warped_pair(rng, n_ref: int, n_live: int):
+    """(ref (12, n_ref), live (12, n_live)): unit chroma-like columns and a
+    tempo-warped rendition of the reference's first ~90 %, so a stream
+    fed all of it never stops."""
+    import numpy as np
+
+    ref = unit_cols(rng.random((12, n_ref)) + 0.05)
+    pos = np.cumsum(rng.uniform(0.5, 1.5, n_live))
+    pos = pos / pos[-1] * (0.9 * n_ref - 1)
+    return ref, unit_cols(ref[:, np.round(pos).astype(int)] + 0.01 * rng.random((12, n_live)))
+
+
+def queued_ms(launch, reps: int) -> float:
+    """ms a launch of ``launch(r)`` for r < ``reps``, from CUDA events
+    around the run, queued on the stream behind a sleeping kernel, so that
+    the host's launch rate (tens of µs a call of the wrapper) does not
+    enter: the device starts the run only once the host has queued all of
+    it (checked: the start event has not completed when the host is done;
+    else again with a longer sleep)."""
+    import torch
+
+    cycles = 20_000_000  # ~10 ms at the H100's 1.98 GHz
+    for _ in range(4):
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        for r in range(reps):
+            launch(r)
+        end.record()
+        queued = not start.query()
+        torch.cuda.synchronize()
+        if queued:
+            return start.elapsed_time(end) / reps
+        cycles *= 4
+    raise AssertionError("the host did not queue the timed run before the device reached it")
+
+
+def insert_times(device) -> dict:
+    """The K-insert kernel's ms a launch for :func:`band_times`
+    (:func:`queued_ms`, after two launches of warm-up): a solo stream at
+    each band of BAND_TIMED, past its startup band, at each k_block of
+    BAND_TIMED_K (0: a launch with no insert); then the delta mode at k_block 8, c = 50, on a CONCERT_FRAMES reference, and
+    the grid at c = 50, k_block 8, both modes, B in BAND_TIMED_BATCHES
+    streams on one 3,118-frame reference fed the same columns."""
+    import numpy as np
+    import torch
+
+    from real_time_audio_sync_tpu_torch.models.online_core import ENGINE_OVERRIDES, OnlineConfig
+    from real_time_audio_sync_tpu_torch.ops import otw_insert
+
+    def timed(launch, reps):
+        launch(0)
+        launch(1)
+        return queued_ms(lambda r: launch(r + 2), reps)
+
+    out = {}
+    n_ref = 3118  # sonata_allegro_00's frames
+    for c in BAND_TIMED:
+        cfg = OnlineConfig(c=c, max_run_count=3, **ENGINE_OVERRIDES["otw"])
+        ref, live = warped_pair(np.random.default_rng(15000 + c), n_ref, n_ref)
+        rows = torch.from_numpy(np.ascontiguousarray(live.T)).to(device)
+        base = otw_insert.new_state(torch.from_numpy(ref).to(device), cfg, 2 * n_ref)
+        warm = 2 * c + 32  # past the startup band t < c
+        for s in range(0, warm, 32):
+            otw_insert.insert_block(base, rows[s : s + 32], (2 * n_ref, n_ref, 32), cfg, 32)
+        for k in BAND_TIMED_K:
+            reps = {0: 64, 1: 128, 8: 64, 32: 16}[k]
+            st, kb, tail = clone_state(base), k if k else 8, rows[warm:]
+            ms = timed(lambda r: otw_insert.insert_block(st, tail[r * k : (r + 1) * k] if k else tail[:kb],
+                                                         (2 * n_ref, n_ref, k), cfg, kb), reps)
+            out[f"c={c} k={k}"] = ms
+            log(f"[insert c={c} k_block={k}]: {ms:.4f} ms/launch ({reps} launches queued, N={n_ref})")
+
+    c, k, reps = PARAMS["c"], 8, 64
+    cfg = OnlineConfig(c=c, max_run_count=3, **ENGINE_OVERRIDES["otw"])
+    ref, live = warped_pair(np.random.default_rng(15500), CONCERT_FRAMES, 2 * c + (reps + 2) * k)
+    rows = torch.from_numpy(np.ascontiguousarray(live.T)).to(device)
+    cap = 2 * CONCERT_FRAMES
+    st = otw_insert.new_state(torch.from_numpy(ref).to(device), cfg, cap, whole_path=False)
+    n_warm = 2 * c // k
+    delta = torch.empty((n_warm + reps + 2, otw_insert.delta_width(cfg, k)), dtype=torch.int32, device=device)
+    for r in range(n_warm):
+        otw_insert.insert_block(st, rows[r * k : (r + 1) * k], (cap, CONCERT_FRAMES, k), cfg, k, delta=delta[r])
+    ms = timed(lambda r: otw_insert.insert_block(st, rows[(n_warm + r) * k : (n_warm + r + 1) * k],
+                                                 (cap, CONCERT_FRAMES, k), cfg, k, delta=delta[n_warm + r]), reps)
+    out[f"delta c={c} k={k}"] = ms
+    log(f"[insert delta c={c} k_block={k}]: {ms:.4f} ms/launch ({reps} launches queued, N={CONCERT_FRAMES})")
+
+    ref, live = warped_pair(np.random.default_rng(15600), n_ref, (reps + 2) * k)
+    rows = torch.from_numpy(np.ascontiguousarray(live.T)).to(device)
+    ref_d = torch.from_numpy(ref).to(device)
+    for b in BAND_TIMED_BATCHES:
+        cols = [rows[r * k : (r + 1) * k].expand(b, k, rows.shape[1]).contiguous() for r in range(reps + 2)]
+        ks = torch.full((b,), k, dtype=torch.int32, device=device)
+        for whole in (True, False):
+            st = otw_insert.new_multi_state([ref_d] * b, cfg, whole_path=whole)
+            rows_d = None if whole else torch.empty((reps + 2, b, otw_insert.delta_width(cfg, k)),
+                                                    dtype=torch.int32, device=device)
+            ms = timed(lambda r: otw_insert.multi_insert_block(st, cols[r], ks, cfg, k,
+                                                               None if whole else rows_d[r]), reps)
+            mode = "whole" if whole else "delta"
+            out[f"grid {mode} B={b}"] = ms
+            log(f"[insert grid {mode} c={c} k_block={k} B={b}]: {ms:.4f} ms/launch ({reps} launches queued)")
+    return out
+
+
+def band_times(tree) -> int:
+    """``--band-times [TREE]``: the two band kernels' times alone, with the
+    port imported from the checkout at ``TREE`` (another commit unpacked
+    there, built there) or from this one, for an A/B of two trees on one
+    card: set_live's ms a pair and µs a band update at every band of
+    ``SET_LIVE_TIMED_BANDS`` (phase 9's pairs), and the K-insert kernel's
+    times of :func:`insert_times`.  Prints the card, the package's path, a
+    line a case and last one JSON object of every number; exits 0."""
     import numpy as np
     import torch
 
@@ -1260,13 +1490,21 @@ def set_live_times(tree) -> int:
     device = torch.device("cuda", 0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True)
-    log(smi.stdout.strip().splitlines()[0])
-    log(f"set_live times of {os.path.dirname(real_time_audio_sync_tpu_torch.__file__)}")
+    card = smi.stdout.strip().splitlines()[0]
+    log(card)
+    package = os.path.dirname(real_time_audio_sync_tpu_torch.__file__)
+    log(f"band kernel times of {package}")
+    set_live_us = {}
     for c in SET_LIVE_TIMED_BANDS:
         rng = np.random.default_rng(9900 + c)
         stream(rng, "otw", c + 30, "stop")  # phase 9 draws its K-insert stream first
         cfg = OnlineConfig(c=c, max_run_count=3, **ENGINE_OVERRIDES["otw"])
-        log(f"[c={c}]: {set_live_timing(rng, cfg, device)}")
+        line = set_live_timing(rng, cfg, device)
+        set_live_us[c] = float(line.rsplit(", ", 1)[1].split(" ")[0])
+        log(f"[set_live c={c}]: {line}")
+    insert = insert_times(device)
+    print(json.dumps({"card": card, "package": package, "set_live_us_per_update": set_live_us,
+                      "insert_ms": insert}), flush=True)
     return 0
 
 
@@ -1600,6 +1838,24 @@ def phase_multi_vs_plain(device) -> None:
         f"{len(VARIANTS)} variants x bands {MULTI_BANDS} x k_block (1, 8) x both modes ({cells} ragged batches of "
         f"3 references of different lengths, per-stream counts 0..k_block): {launches} launches, "
         f"{time.perf_counter() - t0:.1f} s")
+
+    t1 = time.perf_counter()
+    launches, cells = 0, 0
+    for vi, variant in enumerate(("otw", "livenote_v2_diff")):
+        for c in INSERT_EDGE_BANDS:
+            for whole_path in (True, False):
+                rng = np.random.default_rng(11000 + 1000 * vi + c)
+                pairs = [stream(rng, variant, c + 20 + 10 * i, "stop") for i in range(3)]
+                refs, lives = [r for r, _ in pairs], [l for _, l in pairs]
+                lives[1] = lives[1][:, : lives[1].shape[1] * 3 // 5]
+                n, sc = run_multi_batch(refs, lives, set_live_cfg(variant, c), 8, whole_path, device,
+                                        f"phase 10 [{variant} c={c} edge {'whole' if whole_path else 'delta'}]")
+                if sc[0, otw_insert.S_STOPPED] != 1 or sc[2, otw_insert.S_STOPPED] != 1:
+                    raise AssertionError(f"phase 10 [{variant} c={c} edge]: streams 0 and 2 did not stop")
+                launches += n
+                cells += 1
+    log(f"phase 10: the same at the route edges {INSERT_EDGE_BANDS} (otw, livenote_v2_diff, k_block 8, both "
+        f"modes; {cells} ragged batches): {launches} launches, {time.perf_counter() - t1:.1f} s")
 
     t1 = time.perf_counter()
     c = PARAMS["c"]
@@ -2727,6 +2983,86 @@ def phase_wtw_serving(device, root: str, card: str):
                  "append_only_ms": idle_ms, "serving_launches": launches, "sweep_launches": sweep_launches}
 
 
+def ptxas_report(text: str) -> dict:
+    """{mangled kernel name: (registers, stack bytes, spill store bytes,
+    spill load bytes)} from nvcc's ``--ptxas-options=-v`` output."""
+    import re
+
+    props, regs, fn = {}, {}, None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line) or re.search(r"Function properties for (\S+)", line)
+        if m:
+            fn = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and fn:
+            props[fn] = tuple(int(x) for x in m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn:
+            regs[fn] = int(m.group(1))
+    return {name: (regs.get(name), *props.get(name, (None, None, None))) for name in regs}
+
+
+def warp_kernel_report(text: str) -> None:
+    """Phase 2: each instantiation of the one-warp K-insert kernel with its
+    registers, stack and spills (ptxas); raises if one spills more than 16
+    bytes (its band registers would have gone to local memory)."""
+    import re
+
+    cost = {0: "dot", 1: "Euclidean"}
+    seen = 0
+    for name, (regs, stack, spill_st, spill_ld) in sorted(ptxas_report(text).items()):
+        m = re.search(r"otw_insert_kernel_warpILi(\d+)ELb([01])ELi(\d)ELb([01])EE", name)
+        if not m:
+            continue
+        p, shared, kind, ring = (int(x) for x in m.groups())
+        log(f"phase 2: otw_insert_kernel_warp P={p}, window in {'shared' if shared else 'global'} memory, "
+            f"rows in {'shared-memory rings' if ring else 'device memory'}, {cost[kind]}: {regs} registers, {stack} B stack, {spill_st} B spill stores, {spill_ld} B spill loads")
+        if spill_st is None or spill_st > 16 or spill_ld > 16:
+            raise AssertionError(f"phase 2: {name} spills ({spill_st} B stores, {spill_ld} B loads)")
+        seen += 1
+    if seen == 0:
+        raise AssertionError("phase 2: ptxas reported no otw_insert_kernel_warp instantiation")
+
+
+INSERT_ROUTES = {0: "block kernel", 1: "one-warp kernel", 2: "one-warp kernel, rows from device memory"}
+
+
+def insert_plan(c: int, f: int = 12, euclidean: bool = False):
+    """(route, threads a block, dynamic shared bytes, blocks an SM) of a
+    K-insert launch at band c on this card (``otw_insert_plan``)."""
+    import ctypes
+
+    from real_time_audio_sync_tpu_torch.ops import _build
+
+    out = (ctypes.c_int * 4)()
+    err = _build.load("otw_insert").lib.otw_insert_plan(c, f, int(euclidean), out)
+    if err != 0:
+        raise AssertionError(f"otw_insert_plan(c={c}, f={f}) failed: error {err}")
+    return tuple(out)
+
+
+def insert_plans(device) -> None:
+    """Phase 2: the K-insert launch's route at each band the checks run, with
+    the blocks an SM holds (the occupancy calculator); raises unless the
+    route edges lie where phases 3, 9 and 10 expect them."""
+    import torch
+
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    routes = {}
+    for c in sorted(set(BANDS + INSERT_EDGE_BANDS + WIDE_BANDS + BAND_TIMED)):
+        route, threads, smem, blocks = insert_plan(c)
+        routes[c] = route
+        log(f"phase 2: K-insert at c={c}: {INSERT_ROUTES[route]}, {threads} threads a block, {smem} B of dynamic "
+            f"shared memory, {blocks} blocks an SM ({blocks * sms} streams in one wave on {sms} SMs)")
+    for c in INSERT_ANY_WIDTH_BANDS:
+        if insert_plan(c, f=7)[0] != 0:
+            raise AssertionError(f"phase 2: c={c}: F = 7 does not take the block kernel")
+    want = {31: 1, 32: 1, 63: 1, 64: 1, 228: 1, 229: 2, 237: 2, 238: 1, 255: 1, 256: 0}
+    if any(routes[c] != r for c, r in want.items()):
+        raise AssertionError(f"phase 2: K-insert routes {routes}, the checks expect {want} at the edges")
+
+
 def otw_insert_bound_ms(c: int = PARAMS["c"], k: int = 8, f: int = 12) -> float:
     """Bytes of one k_block-k launch at band c over the memory rate: the
     window in and out, the k columns in and live rows out, the k + c + 1
@@ -2761,30 +3097,35 @@ def main() -> int:
     for lib, built in builds.items():
         log(f"phase 2: built {built.path.name} in {built.seconds:.1f} s")
         for line in built.log.splitlines():
-            if "ptxas info" in line and ("registers" in line or "Compiling" in line):
+            if ("ptxas info" in line and ("registers" in line or "Compiling" in line)) or "spill" in line:
                 log(f"phase 2: {line.strip()}")
+    warp_kernel_report(builds["otw_insert"].log)
+    insert_plans(device)
+    phase_s = {"1-2": time.perf_counter() - t_start}  # seconds of each phase
 
-    worst = phase_kernel_vs_plain(device)
-    phase_wavefront_vs_plain(device)
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        phase_s[name] = phase_s.get(name, 0.0) + time.perf_counter() - t0
+        return out
 
-    phase_set_live_vs_plain(device)
+    worst = timed("3", phase_kernel_vs_plain, device)
+    timed("5", phase_wavefront_vs_plain, device)
+    timed("7", phase_set_live_vs_plain, device)
 
     with tempfile.TemporaryDirectory() as root:
-        ref_wav, live_wav = render_piece(root)
-        launches, timings = phase_main_path(device, ref_wav, live_wav)
-        wf = phase_dtw_main_path(device, root)
-        sl = phase_set_live_main_path(device, root)
-        t9 = time.perf_counter()
-        phase_delta_vs_plain(device)
-        concert, concert_wavs, concert_cols = phase_concert(device, root)
-        log(f"phase 9: {time.perf_counter() - t9:.1f} s in all")
-        t10 = time.perf_counter()
-        phase_multi_vs_plain(device)
-        serving = phase_serving(device, root, concert_wavs, concert_cols)
-        log(f"phase 10: {time.perf_counter() - t10:.1f} s in all")
-        t11 = time.perf_counter()
+        ref_wav, live_wav = timed("4", render_piece, root)
+        launches, timings = timed("4", phase_main_path, device, ref_wav, live_wav)
+        wf = timed("6", phase_dtw_main_path, device, root)
+        sl = timed("8", phase_set_live_main_path, device, root)
+        timed("9", phase_delta_vs_plain, device)
+        concert, concert_wavs, concert_cols = timed("9", phase_concert, device, root)
+        log(f"phase 9: {phase_s['9']:.1f} s in all")
+        timed("10", phase_multi_vs_plain, device)
+        serving = timed("10", phase_serving, device, root, concert_wavs, concert_cols)
+        log(f"phase 10: {phase_s['10']:.1f} s in all")
         log(card)
-        wtw_err = phase_wtw_vs_plain(device)
+        wtw_err = timed("11", phase_wtw_vs_plain, device)
         with warnings.catch_warnings():
             # WTWLongReferenceWarning tells a user that WTW was validated on
             # excerpts of about 35 s; the live app's main path here runs on
@@ -2792,13 +3133,12 @@ def main() -> int:
             from real_time_audio_sync_tpu_torch.models.wtw import WTWLongReferenceWarning
 
             warnings.simplefilter("ignore", WTWLongReferenceWarning)
-            wtw_row, wtw_extra = phase_wtw_main_path(device, root, card)
-            log(f"phase 11: {time.perf_counter() - t11:.1f} s in all")
-            t12 = time.perf_counter()
+            wtw_row, wtw_extra = timed("11", phase_wtw_main_path, device, root, card)
+            log(f"phase 11: {phase_s['11']:.1f} s in all")
             log(card)
-            multi_wtw_err = phase_wtw_multi_vs_plain(device)
-            multi_wtw_row, multi_wtw_extra = phase_wtw_serving(device, root, card)
-        log(f"phase 12: {time.perf_counter() - t12:.1f} s in all")
+            multi_wtw_err = timed("12", phase_wtw_multi_vs_plain, device)
+            multi_wtw_row, multi_wtw_extra = timed("12", phase_wtw_serving, device, root, card)
+        log(f"phase 12: {phase_s['12']:.1f} s in all")
 
     # "ms" is each kernel's device time per launch (profiler; the CUDA-event
     # time when the trace holds none); otw_insert_block's at k_block 8,
@@ -2828,6 +3168,8 @@ def main() -> int:
             kernels[-1].update(wtw_extra)
         if name == "wtw_multi_insert_block":  # B streams a launch; the launches of (b) and (c); the two kinds
             kernels[-1].update(multi_wtw_extra)
+    order = sorted(phase_s, key=lambda name: int(name.split("-")[0]))
+    log("seconds a phase: " + ", ".join(f"{name} {phase_s[name]:.1f}" for name in order))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card)
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -2837,6 +3179,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--set-live-times"]:
-        sys.exit(set_live_times(sys.argv[2] if len(sys.argv) > 2 else None))
+    if sys.argv[1:2] == ["--band-times"]:
+        sys.exit(band_times(sys.argv[2] if len(sys.argv) > 2 else None))
     sys.exit(main())

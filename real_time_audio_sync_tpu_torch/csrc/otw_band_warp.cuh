@@ -1,11 +1,12 @@
 // Warp-level band primitives of the online-time-warping recurrence: one
 // warp runs one alignment, with the band's positions in registers, the
 // min-plus scan and the argmins as register shuffles, and no block barrier.
-// The whole-pair set_live kernel (otw_set_live.cu) runs on them; the
-// K-insert kernel keeps the block-level primitives of otw_band.cuh.  The
-// per-cell numerics (cost_of, take_min), the window's ring offsets (Ring),
-// the walk's scalar state (Walk) and the launch helper stay one copy there,
-// so both kernels compute every cell alike.
+// The whole-pair set_live kernel (otw_set_live.cu) runs on them, and so
+// does the K-insert kernel (otw_insert.cu) up to c = 255; above it keeps
+// the block-level primitives of otw_band.cuh.  The per-cell numerics
+// (cost_of, take_min), the window's ring offsets (Ring), the walk's scalar
+// state (Walk) and the launch helper stay one copy there, so every kernel
+// computes every cell alike.
 //
 // Counterpart of the TPU kernels' shared primitives in
 // real_time_audio_sync_tpu/ops/pallas_otw.py: _build_ops (:125) —

@@ -36,7 +36,7 @@
 //   16-byte vectors, where a warp reads 32 positions' rows without a bank
 //   conflict (from device memory the same read touches 32 sectors), the
 //   entering row loaded into a register a step ahead; where the rings do
-//   not fit beside the window (c = 228..237 on an H100) the rows are read
+//   not fit beside the window (c = 229..237 on an H100) the rows are read
 //   from device memory, the entering row prefetched into L1 a step ahead;
 // - one cost kind and one home of the rows compiled into each kernel, and
 //   one call site of the band update, so the step loop is about 600
@@ -161,7 +161,7 @@ using Kernel = void (*)(Params);
 
 // A shared window exists up to c = 237 on an H100 (P <= 8), a global one
 // from c = 238 (P >= 8); the rings fit beside a global window at every
-// band and beside a shared one up to c = 227.  Each cost kind at width 12
+// band and beside a shared one up to c = 228.  Each cost kind at width 12
 // is compiled for those cases, a larger P than the band needs being as
 // exact (its positions above c are never read); the fallback for any
 // feature width reads its rows from device memory at the widest P of each

@@ -44,6 +44,7 @@ SIGNATURES = {
         ),
         "otw_error_string": ([_I], ctypes.c_char_p),
         "otw_band_workspace_floats": ([_I, _I], ctypes.c_int),
+        "otw_insert_plan": ([_I] * 3 + [_P], ctypes.c_int),
     },
     "otw_set_live": {
         "otw_set_live": ([_P] * 7 + [_I] * 7 + [ctypes.c_float] + [_I] * 4 + [_P], ctypes.c_int),

@@ -20,18 +20,23 @@ as one CUDA kernel (``csrc/otw_insert.cu``) in two modes, over one stream
   live history stay in device memory in both modes.
 
 What bounds it on an H100: latency, not bytes or FLOPs.  One stream is one
-thread block running a serial chain of about ``K·loop_iters`` band steps,
-each a (c+1)-wide cost + min-plus scan + argmin separated by block
-barriers, over a few KB of state.  The design keeps the whole (c+1)² window
-in shared memory for the launch (a ring offset replaces the TPU's physical
-rolls, so a band step touches O(c) cells), keeps the scalar state machine
-in registers (every thread computes it identically from the same reduced
-values), and touches device memory only for the 12-float feature rows, the
-path points and the launch's prologue/epilogue.  A band whose window does
-not fit the card's shared memory per block (c ≥ 238 on an H100) keeps its
-window in a global-memory workspace instead (:func:`window_workspace`):
-the same kernel source with the window in another memory space, chosen by
-band width.
+thread block running a serial chain of about ``K·loop_iters`` band
+updates, each a (c+1)-wide cost + min-plus scan + argmin that needs the
+last one's window, over a few KB of state.  The design keeps the whole
+(c+1)² window in shared memory for the launch (a ring offset replaces the
+TPU's physical rolls, so a band update touches O(c) cells) and the scalar
+state machine in registers.  Where the band has at most 8 registers a lane
+(c ≤ 255) and the features are chroma, one warp runs the chain (band
+position 32k + lane in register k, the scan and argmins as shuffles, no
+block barrier; the band's rows in two shared-memory rings, or read from
+device memory where the rings do not fit beside a shared window, c =
+229–237 on an H100) and the block's other warps only share the window's
+copy in and out; above it one thread per band position runs it between
+block barriers, which is faster there.  A band whose window does not fit the
+card's shared memory per block (c ≥ 238 on an H100) keeps its window in a
+global-memory workspace instead (:func:`window_workspace`): the same
+kernel source with the window in another memory space, chosen by band
+width.
 
 State at a launch boundary (:class:`OTWState`, all on one device) is
 updated IN PLACE by each launch — this replaces the TPU kernel's

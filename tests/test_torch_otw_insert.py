@@ -205,10 +205,19 @@ def test_delta_mode_matches_jax_long_kernel_launch_by_launch(variant, c, mrc, k_
     """The plain delta mode against the JAX long-reference kernel (interpret
     mode) on one stream: equal status and equal committed points in every
     launch's row."""
-    from real_time_audio_sync_tpu.ops.pallas_otw import _LANES, _SUBLANES, _long_geometry, _round_up as ru
-
     rng = np.random.default_rng(500 + 7 * c + k_block)
     ref, live = _stream(rng, variant, n_ref=c + 15)
+    port = _run_long_against_jax(ref, live, variant, c, mrc, k_block)
+    assert port.scalars[otw_insert.S_STOPPED] == 1
+
+
+def _run_long_against_jax(ref, live, variant, c, mrc, k_block):
+    """One stream through the plain delta mode and the JAX long-reference
+    kernel (interpret mode), k_block columns a launch: equal status, equal
+    committed points in every launch's row and equal scalars.  Returns the
+    port's state."""
+    from real_time_audio_sync_tpu.ops.pallas_otw import _LANES, _SUBLANES, _long_geometry, _round_up as ru
+
     f, n = ref.shape
     cap = 2 * n
     jeng = JaxEngine(ref, {"c": c, "max_run_count": mrc}, cfg_overrides=ENGINE_OVERRIDES[variant],
@@ -238,7 +247,7 @@ def test_delta_mode_matches_jax_long_kernel_launch_by_launch(variant, c, mrc, k_
         np.testing.assert_array_equal(row[8 + jd_pad : 8 + jd_pad + got].numpy(), np.asarray(dy)[:got])
         np.testing.assert_array_equal(port.scalars.numpy()[:11], np.asarray(sc)[:11])
         plen0 = int(status[1])
-    assert port.scalars[otw_insert.S_STOPPED] == 1
+    return port
 
 
 # ---------------------------------------------------------------------------
