@@ -1,7 +1,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (H100, sm_90a).
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --band-times [TREE]   # the two band kernels' times alone (A/B)
+    python3 chip_smoke.py --band-times [TREE]   # the band and wavefront kernels' times alone (A/B)
 
 Phases, each raising on failure (the process then exits non-zero):
 
@@ -11,7 +11,8 @@ Phases, each raising on failure (the process then exits non-zero):
    and spills from ptxas (a spill over 16 bytes fails), and the K-insert
    launch's kernel at each band checked below (one warp with its rows in
    rings or read from device memory, or the block kernel), with the blocks
-   an SM holds;
+   an SM holds; the wavefront kernels' registers, stack and spills (any
+   spill fails) and the DP strips an SM holds;
 3. kernel against plain, on the card — the K-insert kernel and its plain
    PyTorch version (on host copies, as in every comparison of phases 3 and
    7-10 but phase 10 (d)'s) run the same streams launch by launch (4 engine
@@ -33,10 +34,14 @@ Phases, each raising on failure (the process then exits non-zero):
    beside the back-to-back kernel and plain-version times (CUDA events).
 5. wavefront kernels against plain, on the card — the DP and backtrack
    kernels and their plain versions on the same card-resident costs: both
-   step specs, float32 and float64, shapes (1, 1) … (40, 65), an all-ones
-   tie case, and the main path's (2,873, 3,118) and its transpose.
-   ``acc``, ``back``, ``points`` and ``length`` must be EQUAL (each cell is
-   the same multiply, add and strict compare, so the tolerance is zero);
+   step specs, float32 and float64, shapes (1, 1) … (40, 65), the DP's
+   lane, strip and chunk edges M ∈ {1, 31, 32, 33, 64, 65} × N ∈ {1, 7,
+   31, 32, 33, 100}, the thin (1, 3,118), (3,118, 1) and (2,873, 40), a
+   cost with infinite cells, an all-ones tie case, and the main path's
+   (2,873, 3,118) and its transpose; then (80,000, 4), more strips than
+   the card holds at once (float32, DTW).  ``acc``, ``back``, ``points``
+   and ``length`` must be EQUAL (each cell is the same multiply, add and
+   strict compare, so the tolerance is zero);
 6. offline DTW main path — the three pairs of the rendered
    ``sonata_allegro`` piece (_00 3,118 frames, _01 2,874, _02 3,252) one by one
    through ``align_pair(engine="dtw", device="cuda")`` (chroma on the card,
@@ -182,7 +187,8 @@ Phases, each raising on failure (the process then exits non-zero):
 The builds run in parallel (one ``nvcc`` per source).  Then each phase's
 seconds, one JSON line of per-kernel results, and last ``{"ok": true,
 "device": {...}}``.  ``--band-times [TREE]`` only times the two band
-kernels (:func:`band_times`), for an A/B of two trees in one call.
+kernels and the two wavefront kernels (:func:`band_times`), for an A/B of
+two trees in one call.
 Without a CUDA device it exits non-zero before printing any result.
 """
 
@@ -230,6 +236,16 @@ KERNELS = {
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
 WAVEFRONT_SHAPES = ((1, 1), (1, 7), (7, 1), (5, 7), (33, 20), (40, 65))
+# the DP kernel's edges: rows on both sides of a lane's and a strip's (32
+# and 64 rows), columns on both sides of a chunk (32); thin shapes of the
+# main path's lengths; and a shape of more strips than an H100 holds at once
+WAVEFRONT_EDGE_M = (1, 31, 32, 33, 64, 65)
+WAVEFRONT_EDGE_N = (1, 7, 31, 32, 33, 100)
+WAVEFRONT_THIN = ((1, 3118), (3118, 1), (2873, 40))
+WAVEFRONT_MANY_STRIPS = (80000, 4)
+# --band-times: the wavefront kernels' shapes (the main pair, the live
+# app's WTW window, the harness's), float32; the DP's also in float64
+WAVEFRONT_TIMED = ((2874, 3118), (100, 100), (20, 20))
 SWEEP_BAND = {"search_band_width": 50, "max_run_count": 3}  # tests.py:140
 SET_LIVE_SCENARIOS = ("runs_out", "stop", "capacity")
 # combined frames at which the JAX package sends a pair to its streaming
@@ -676,8 +692,9 @@ def compare_wavefront(cost, spec, what: str):
 
 
 def phase_wavefront_vs_plain(device):
-    """Phase 5: random and tied costs at small shapes and at the main
-    path's size, both ways round."""
+    """Phase 5: random, tied and partly infinite costs at small, edge and
+    thin shapes and at the main path's size, both ways round; then one DP
+    of more strips than the card holds at once."""
     import torch
 
     from real_time_audio_sync_tpu_torch.ops import wavefront
@@ -686,11 +703,16 @@ def phase_wavefront_vs_plain(device):
     gen = torch.Generator(device=device).manual_seed(5)
     n_cases, worst_acc, worst_pts = 0, 0.0, 0.0
     big = ((2873, 3118), (3118, 2873))
+    edges = tuple((m, n) for m in WAVEFRONT_EDGE_M for n in WAVEFRONT_EDGE_N)
+    shapes = WAVEFRONT_SHAPES + edges + WAVEFRONT_THIN + big
     for spec_name, spec in (("dtw", wavefront.DTW_SPEC), ("wtw", wavefront.WTW_SPEC)):
         for dtype in (torch.float32, torch.float64):
-            cases = [(shape, torch.rand(shape, generator=gen, device=device, dtype=dtype))
-                     for shape in WAVEFRONT_SHAPES + big]
+            cases = [(shape, torch.rand(shape, generator=gen, device=device, dtype=dtype)) for shape in shapes]
             cases.append(((12, 9), torch.ones((12, 9), device=device, dtype=dtype)))  # ties everywhere
+            inf_cost = torch.rand((333, 517), generator=gen, device=device, dtype=dtype)
+            inf_cost[torch.rand((333, 517), generator=gen, device=device) < 0.1] = float("inf")
+            inf_cost[0, ::3] = float("inf")  # row 0 too: steps off the matrix, clamped
+            cases.append(((333, 517), inf_cost))
             for shape, cost in cases:
                 what = f"{spec_name} {str(dtype)[6:]} {shape}"
                 d_acc, d_pts, path = compare_wavefront(cost, spec, what)
@@ -700,8 +722,59 @@ def phase_wavefront_vs_plain(device):
                     log(f"phase 5: {what}: kernel == plain (acc, back, points; path length {len(path)} of "
                         f"{shape[0] + shape[1] - 1} slots)")
     log(f"phase 5: wavefront kernels == plain on the card in all {n_cases} cases (2 specs x float32/float64 x "
-        f"{len(WAVEFRONT_SHAPES) + len(big) + 1} shapes), acc max |diff| {worst_acc}, points max |diff| "
-        f"{worst_pts}, {time.perf_counter() - t0:.1f} s")
+        f"{len(shapes) + 2} shapes: {len(WAVEFRONT_SHAPES)} small, {len(edges)} lane/strip/chunk edges, thin "
+        f"{WAVEFRONT_THIN}, the main pair both ways, ties, infinite cells), acc max |diff| {worst_acc}, points "
+        f"max |diff| {worst_pts}, {time.perf_counter() - t0:.1f} s")
+    t1 = time.perf_counter()
+    strips, resident = wavefront_strips(WAVEFRONT_MANY_STRIPS[0], False, device)
+    if strips <= resident:
+        raise AssertionError(f"phase 5: {WAVEFRONT_MANY_STRIPS} is {strips} strips, not more than the "
+                             f"{resident} the card holds at once")
+    cost = torch.rand(WAVEFRONT_MANY_STRIPS, generator=gen, device=device)
+    d_acc, d_pts, path = compare_wavefront(cost, wavefront.DTW_SPEC, f"dtw float32 {WAVEFRONT_MANY_STRIPS}")
+    log(f"phase 5: dtw float32 {WAVEFRONT_MANY_STRIPS}: {strips} strips, {resident} resident at once: kernel == "
+        f"plain (acc, back, points; path length {len(path)}), {time.perf_counter() - t1:.1f} s (the plain "
+        f"version's {sum(WAVEFRONT_MANY_STRIPS) - 1} diagonals most of it)")
+
+
+def wavefront_strips(m: int, is_double: bool, device):
+    """(strips of the DP kernel over m rows, strips the card holds at once)."""
+    import ctypes
+
+    import torch
+
+    from real_time_audio_sync_tpu_torch.ops import _build
+
+    lib = _build.load("wavefront").lib
+    blocks = ctypes.c_int()
+    err = lib.wavefront_dp_resident(int(is_double), ctypes.byref(blocks))
+    if err != 0:
+        raise AssertionError(f"wavefront_dp_resident failed: {lib.wavefront_error_string(err).decode()}")
+    rows = lib.wavefront_dp_strip_rows()
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return -(-m // rows), blocks.value * sms
+
+
+def wavefront_report(text: str, device) -> None:
+    """Phase 2: the wavefront kernels' registers, stack and spills (ptxas;
+    any spill fails) and the DP strips the card holds at once."""
+    seen = 0
+    for name, (regs, stack, spill_st, spill_ld) in sorted(ptxas_report(text).items()):
+        if "wavefront_dp_kernel" not in name and "wavefront_backtrack_kernel" not in name:
+            continue
+        log(f"phase 2: {name}: {regs} registers, {stack} B stack, {spill_st} B spill stores, {spill_ld} B spill loads")
+        if spill_st is None or spill_st or spill_ld:
+            raise AssertionError(f"phase 2: {name} spills ({spill_st} B stores, {spill_ld} B loads)")
+        seen += 1
+    if seen < 3:
+        raise AssertionError(f"phase 2: ptxas reported {seen} wavefront kernels")
+    import torch
+
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    for is_double in (False, True):
+        _, resident = wavefront_strips(1, is_double, device)
+        log(f"phase 2: wavefront DP, {'float64' if is_double else 'float32'}: {resident // sms} strips an SM, "
+            f"{resident} resident at once on {sms} SMs")
 
 
 def time_calls(fn, reps: int, warmup: int = 2) -> float:
@@ -811,6 +884,8 @@ def phase_dtw_main_path(device, root: str):
     path_len = int(wavefront.backtrack(back, wavefront.DTW_SPEC)[1])
     reps = 20
     out = {}
+    strips, resident = wavefront_strips(m, False, device)
+    log(f"phase 6 [wavefront_dp] at ({m}, {n}): {strips} strips ({resident} resident at once)")
     for name, kernel, launch, plain, plain_reps, bytes_, ops in (
         ("wavefront_dp", "wavefront_dp_kernel",
          lambda: wavefront.wavefront_dp(cost, wavefront.DTW_SPEC),
@@ -1468,14 +1543,47 @@ def insert_times(device) -> dict:
     return out
 
 
+def wavefront_times(device) -> dict:
+    """The wavefront kernels' ms a launch for :func:`band_times`
+    (:func:`queued_ms` over 20 launches after two of warm-up, each
+    launch's wrapper included: the DP's zeroed workspace, the backtrack's
+    outputs): the DP and the backtrack at each shape of WAVEFRONT_TIMED in
+    float32, on a uniform random cost, and the DP at the first in float64."""
+    import torch
+
+    from real_time_audio_sync_tpu_torch.ops import wavefront
+
+    def timed(launch, reps=20):
+        launch()
+        launch()
+        return queued_ms(lambda r: launch(), reps)
+
+    gen = torch.Generator(device=device).manual_seed(16)
+    out = {}
+    for shape in WAVEFRONT_TIMED:
+        for dtype in (torch.float32, torch.float64) if shape == WAVEFRONT_TIMED[0] else (torch.float32,):
+            cost = torch.rand(shape, generator=gen, device=device, dtype=dtype)
+            name = f"dp {shape[0]}x{shape[1]} {str(dtype)[6:]}"
+            out[name] = timed(lambda: wavefront.wavefront_dp(cost, wavefront.DTW_SPEC))
+            log(f"[wavefront {name}]: {out[name]:.4f} ms/launch (20 launches queued)")
+            if dtype == torch.float32:
+                _, back = wavefront.wavefront_dp(cost, wavefront.DTW_SPEC)
+                length = int(wavefront.backtrack(back, wavefront.DTW_SPEC)[1])
+                name = f"backtrack {shape[0]}x{shape[1]}"
+                out[name] = timed(lambda: wavefront.backtrack(back, wavefront.DTW_SPEC))
+                log(f"[wavefront {name}]: {out[name]:.4f} ms/launch (20 launches queued; path {length} points)")
+    return out
+
+
 def band_times(tree) -> int:
-    """``--band-times [TREE]``: the two band kernels' times alone, with the
-    port imported from the checkout at ``TREE`` (another commit unpacked
-    there, built there) or from this one, for an A/B of two trees on one
-    card: set_live's ms a pair and µs a band update at every band of
-    ``SET_LIVE_TIMED_BANDS`` (phase 9's pairs), and the K-insert kernel's
-    times of :func:`insert_times`.  Prints the card, the package's path, a
-    line a case and last one JSON object of every number; exits 0."""
+    """``--band-times [TREE]``: the band and wavefront kernels' times alone,
+    with the port imported from the checkout at ``TREE`` (another commit
+    unpacked there, built there) or from this one, for an A/B of two trees
+    on one card: set_live's ms a pair and µs a band update at every band of
+    ``SET_LIVE_TIMED_BANDS`` (phase 9's pairs), the K-insert kernel's
+    times of :func:`insert_times` and the wavefront kernels' of
+    :func:`wavefront_times`.  Prints the card, the package's path, a line
+    a case and last one JSON object of every number; exits 0."""
     import numpy as np
     import torch
 
@@ -1493,7 +1601,7 @@ def band_times(tree) -> int:
     card = smi.stdout.strip().splitlines()[0]
     log(card)
     package = os.path.dirname(real_time_audio_sync_tpu_torch.__file__)
-    log(f"band kernel times of {package}")
+    log(f"band and wavefront kernel times of {package}")
     set_live_us = {}
     for c in SET_LIVE_TIMED_BANDS:
         rng = np.random.default_rng(9900 + c)
@@ -1503,8 +1611,9 @@ def band_times(tree) -> int:
         set_live_us[c] = float(line.rsplit(", ", 1)[1].split(" ")[0])
         log(f"[set_live c={c}]: {line}")
     insert = insert_times(device)
+    wave = wavefront_times(device)
     print(json.dumps({"card": card, "package": package, "set_live_us_per_update": set_live_us,
-                      "insert_ms": insert}), flush=True)
+                      "insert_ms": insert, "wavefront_ms": wave}), flush=True)
     return 0
 
 
@@ -3101,6 +3210,7 @@ def main() -> int:
                 log(f"phase 2: {line.strip()}")
     warp_kernel_report(builds["otw_insert"].log)
     insert_plans(device)
+    wavefront_report(builds["wavefront"].log, device)
     phase_s = {"1-2": time.perf_counter() - t_start}  # seconds of each phase
 
     def timed(name, fn, *args):

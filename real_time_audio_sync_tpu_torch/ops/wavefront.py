@@ -20,7 +20,11 @@ float32 cost).
 
 The TPU's skewed (diagonal-major) layout is a Mosaic layout device: here
 ``acc`` and ``back`` are row-major (M, N) and the plain version indexes
-each anti-diagonal directly.
+each anti-diagonal directly.  The DP kernel sweeps strips of rows, one
+warp each, and each strip hands its bottom row to the strip below through
+a zeroed workspace that the wrapper allocates at the size the library
+gives (``wavefront_dp_workspace_bytes``); the backtrack kernel stages tiles
+of ``back`` in shared memory (the design is in the source's header).
 
 Backtrack contract (as the JAX package's): ``points`` (M+N-1, 2) int32,
 the path from (M-1, N-1) back to (0, 0), then (0, 0) repeated; ``length``
@@ -95,10 +99,14 @@ def _step_table(spec: StepSpec):
 # ---------------------------------------------------------------------------
 
 
-def _launch(fn_name: str, x: torch.Tensor, *args) -> None:
+def _library():
     from real_time_audio_sync_tpu_torch.ops import _build
 
-    lib = _build.load("wavefront").lib
+    return _build.load("wavefront").lib
+
+
+def _launch(fn_name: str, x: torch.Tensor, *args) -> None:
+    lib = _library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = getattr(lib, fn_name)(*args, stream)
@@ -129,9 +137,12 @@ def wavefront_dp(cost: torch.Tensor, spec: StepSpec = DTW_SPEC,
     acc = torch.empty_like(cost)
     back = torch.empty((m, n), dtype=torch.int8, device=cost.device)
     kinds = [_KIND[s] for s in spec.steps]
-    _launch("wavefront_dp", cost, cost.data_ptr(), acc.data_ptr(), back.data_ptr(), m, n,
-            int(cost.dtype == torch.float64), *kinds, *(float(w) for w in spec.weights),
-            *spec.codes, spec.corner_code)
+    is_double = int(cost.dtype == torch.float64)
+    # the strips' ticket and the rows they hand down, zeroed, as the library sizes it
+    ws_bytes = _library().wavefront_dp_workspace_bytes(m, n, is_double)
+    workspace = torch.zeros(ws_bytes, dtype=torch.uint8, device=cost.device)
+    _launch("wavefront_dp", cost, cost.data_ptr(), acc.data_ptr(), back.data_ptr(), m, n, is_double, *kinds,
+            *(float(w) for w in spec.weights), *spec.codes, spec.corner_code, workspace.data_ptr())
     dp_launches += 1
     return acc, back
 
