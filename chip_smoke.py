@@ -1,7 +1,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (H100, sm_90a).
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --band-times [TREE]   # the band and wavefront kernels' times alone (A/B)
+    python3 chip_smoke.py --band-times [TREE]   # the band, wavefront and WTW kernels' times alone (A/B)
 
 Phases, each raising on failure (the process then exits non-zero):
 
@@ -12,7 +12,9 @@ Phases, each raising on failure (the process then exits non-zero):
    launch's kernel at each band checked below (one warp with its rows in
    rings or read from device memory, or the block kernel), with the blocks
    an SM holds; the wavefront kernels' registers, stack and spills (any
-   spill fails) and the DP strips an SM holds;
+   spill fails) and the DP strips an SM holds; the WTW kernel's registers,
+   stack and spills (any stack or spill fails) and its launch at each
+   window checked below (warps, threads, shared bytes, blocks an SM);
 3. kernel against plain, on the card — the K-insert kernel and its plain
    PyTorch version (on host copies, as in every comparison of phases 3 and
    7-10 but phase 10 (d)'s) run the same streams launch by launch (4 engine
@@ -135,7 +137,9 @@ Phases, each raising on failure (the process then exits non-zero):
    (a) the kernel against its plain version on host copies, launch by
    launch, at (w, hop_frames) in {(20, 10), (100, 50), (128, 64),
    (20, 30)} (the harness's window, the live app's, the widest the kernel
-   takes, a hop past the window) x k_block in {1, 8, 32} x a fresh stream
+   takes, a hop past the window) and at the kernel's warp edges (w in {1,
+   31, 32, 33, 64, 65}, a hop below the window and one at or above it) x
+   k_block in {1, 8, 32} x a fresh stream
    running to its margin stop, a mid-stream margin stop and a capacity
    stop, every third block ragged, two frozen launches after each stop:
    delta rows, scalars and live history EQUAL;
@@ -158,7 +162,8 @@ Phases, each raising on failure (the process then exits non-zero):
    streams (kernel #10) —
    (a) the batched kernel against its plain version (host copies) and the
    solo kernel #9 on each stream alone, launch by launch, over phase 11's
-   (w, hop_frames) x k_block in {1, 8, 32} x {a ragged B = 3 of references
+   (w, hop_frames) x k_block in {1, 8, 32} and its warp edges at k_block
+   8, x {a ragged B = 3 of references
    of different lengths, a B = 5 with a margin and a capacity stop, a
    shared reference x 3}, per-stream counts 0..k_block, two frozen
    launches after the last stop: rows, scalars and live histories EQUAL;
@@ -180,15 +185,15 @@ Phases, each raising on failure (the process then exits non-zero):
    path equal to solo ``align_pair(engine="wtw", mode="fused")``; the
    sweep's wall against the solo runs', launches, buckets;
    (d) the kernel's time at w = 100 and B in {1, 64, 256}, and at w = 128,
-   B = 256 (two waves): profiler device time a launch (window and
+   B = 256 (the blocks an SM decide the waves): profiler device time a launch (window and
    append-only launches apart), CUDA events, the bound; the plain version
    at B = 4 from the same state, rows and states equal to the kernel's.
 
 The builds run in parallel (one ``nvcc`` per source).  Then each phase's
 seconds, one JSON line of per-kernel results, and last ``{"ok": true,
 "device": {...}}``.  ``--band-times [TREE]`` only times the two band
-kernels and the two wavefront kernels (:func:`band_times`), for an A/B of
-two trees in one call.
+kernels, the two wavefront kernels and the WTW kernel (:func:`band_times`),
+for an A/B of two trees in one call.
 Without a CUDA device it exits non-zero before printing any result.
 """
 
@@ -312,6 +317,21 @@ PLAIN_REPS = 4
 # CPU plain engine runs (a cut that bounds the phase's time; the card runs
 # all of them); the launches timed; the buffers of the traced slice
 WTW_SHAPES = ((20, 10), (100, 50), (128, 64), (20, 30))
+# phases 11 (a) and 12 (a) also run the kernel's warp edges (1 to 3 warps
+# of 32 DP rows, and the one-frame window), each with a hop below the
+# window and one at or above it (w = 1: both above)
+WTW_EDGE_SHAPES = ((1, 1), (1, 3), (31, 15), (31, 31), (32, 16), (32, 40), (33, 16), (33, 33), (64, 32),
+                   (64, 70), (65, 32), (65, 65))
+# phase 11 (a)'s streams that stress the cost's division (wtw_stream), at
+# one, two and four warps
+WTW_COST_SHAPES = ((20, 10), (33, 16), (100, 50))
+WTW_COST_SCENARIOS = ("zeros", "tiny", "small", "ties")
+# launches of more columns than the kernel stages at once (32, COLS_STAGE in
+# csrc/wtw_insert.cu): two and three stages, whose windows read rows that an
+# earlier stage of the same launch appended; phase 11 (a) runs them at these
+# (w, hop), phase 12 (a) at the first
+WTW_WIDE_K_BLOCKS = (41, 65)
+WTW_WIDE_SHAPES = ((100, 50), (20, 10))
 WTW_SCENARIOS = ("run", "margin", "capacity")
 LIVE_APP_WTW = {"fft_len": 4096, "hop_size": 2048, "dtw_win_size": 4096 * 50, "dtw_hop_size": 2048 * 50}
 WTW_PLAIN_HOPS = 1000
@@ -320,13 +340,17 @@ WTW_TRACE_BUFFERS = 800
 # phase 12: the streams served (bench.py:764 sizes WTW serving at 64), the
 # k_block of the host-chroma run (bench.py:787), the hops of the traced
 # slice, the batches at which the frontend is checked and timed (18: the
-# sweep's pairs), the (w, hop_frames, B) timed (B = 256 at w = 128 is two
-# waves), and the plain version's batch
+# sweep's pairs), the (w, hop_frames, B) timed (B = 256 at w = 128: the
+# widest window at serving scale), and the plain version's batch
 WTW_SERVING_STREAMS = 64
 WTW_CHROMA_K_BLOCK = 32
 WTW_SERVING_TRACE_HOPS = 96
 WTW_FRONTEND_BATCHES = (1, 18, WTW_SERVING_STREAMS)
 WTW_MULTI_TIMING = ((100, 50, 1), (100, 50, WTW_SERVING_STREAMS), (100, 50, 256), (128, 64, 256))
+# --band-times: the WTW kernel's (w, hop_frames) alone (#9) and its grid's
+# (w, hop_frames, B) (#10)
+WTW_TIMED = ((20, 10), (100, 50), (128, 64))
+WTW_MULTI_TIMED = ((100, 50, WTW_SERVING_STREAMS), (100, 50, 256), (128, 64, 256))
 WTW_MULTI_PLAIN_BATCH = 4
 
 
@@ -753,6 +777,32 @@ def wavefront_strips(m: int, is_double: bool, device):
     rows = lib.wavefront_dp_strip_rows()
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     return -(-m // rows), blocks.value * sms
+
+
+def wtw_report(text: str, device) -> None:
+    """Phase 2: each instantiation of the WTW kernel (one a candidate
+    order) with its registers, stack and spills (ptxas; any stack or spill
+    fails: the scalars, the lane's row and the group's costs must stay in
+    registers), and the launch's geometry at the windows the checks run."""
+    import torch
+
+    from real_time_audio_sync_tpu_torch.ops import wtw_insert
+
+    seen = 0
+    for name, (regs, stack, spill_st, spill_ld) in sorted(ptxas_report(text).items()):
+        if "wtw_insert_kernel" not in name:
+            continue
+        log(f"phase 2: {name}: {regs} registers, {stack} B stack, {spill_st} B spill stores, {spill_ld} B spill loads")
+        if stack is None or stack or spill_st or spill_ld:
+            raise AssertionError(f"phase 2: {name}: {stack} B stack, {spill_st} B spill stores, {spill_ld} B spill loads")
+        seen += 1
+    if seen != 6:
+        raise AssertionError(f"phase 2: ptxas reported {seen} WTW kernels, not one a candidate order")
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    for w in sorted({w for w, _ in WTW_SHAPES + WTW_EDGE_SHAPES}):
+        warps, threads, smem, blocks = wtw_insert.plan(w)
+        log(f"phase 2: WTW at w={w}: {warps} warp(s) of one DP row a lane, {threads} threads a block, {smem} B of dynamic shared "
+            f"memory, {blocks} blocks an SM ({blocks * sms} streams in one wave on {sms} SMs)")
 
 
 def wavefront_report(text: str, device) -> None:
@@ -1448,17 +1498,20 @@ def warped_pair(rng, n_ref: int, n_live: int):
     return ref, unit_cols(ref[:, np.round(pos).astype(int)] + 0.01 * rng.random((12, n_live)))
 
 
-def queued_ms(launch, reps: int) -> float:
+def queued_ms(launch, reps: int, prepare=None) -> float:
     """ms a launch of ``launch(r)`` for r < ``reps``, from CUDA events
     around the run, queued on the stream behind a sleeping kernel, so that
     the host's launch rate (tens of µs a call of the wrapper) does not
     enter: the device starts the run only once the host has queued all of
     it (checked: the start event has not completed when the host is done;
-    else again with a longer sleep)."""
+    else again with a longer sleep, after ``prepare()`` again where given:
+    the launches' inputs made anew, outside the timed run)."""
     import torch
 
     cycles = 20_000_000  # ~10 ms at the H100's 1.98 GHz
     for _ in range(4):
+        if prepare is not None:
+            prepare()
         torch.cuda.synchronize()
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         torch.cuda._sleep(cycles)
@@ -1575,14 +1628,83 @@ def wavefront_times(device) -> dict:
     return out
 
 
+def wtw_times(device) -> dict:
+    """The WTW kernel's ms a launch for :func:`band_times`, through the
+    wrappers alone (``new_state``, ``wtw_insert_block``,
+    ``new_multi_state``, ``multi_wtw_insert_block``, ``delta_width``): #9
+    at each (w, hop) of WTW_TIMED and #10 at each (w, hop, B) of
+    WTW_MULTI_TIMED, k_block 8, every stream on a fresh state on a
+    3,118-frame reference fed a warped rendition of it.  For each, the
+    main path's mix: its first WTW_TIMED_LAUNCHES launches in order; then
+    the launches of that mix that ran a window and those that only
+    appended, each from a copy of its own state before it (four times
+    over, at most WTW_TIMED_LAUNCHES launches).  Every run
+    :func:`queued_ms`, its states copied before it."""
+    import numpy as np
+    import torch
+
+    from real_time_audio_sync_tpu_torch.ops import wtw_insert
+
+    k, reps, n_ref = 8, WTW_TIMED_LAUNCHES, 3118
+    ref, live = warped_pair(np.random.default_rng(17000), n_ref, reps * k)
+    ref_d = torch.from_numpy(ref).to(device)
+    rows_d = torch.from_numpy(np.ascontiguousarray(live.T)).to(device)
+    out = {}
+    for w, hop, b in [(w, hop, None) for w, hop in WTW_TIMED] + list(WTW_MULTI_TIMED):
+        width = wtw_insert.delta_width(w, hop, k)
+        if b is None:
+            blocks = [rows_d[r * k : (r + 1) * k] for r in range(reps)]
+            fresh = lambda: wtw_insert.new_state(ref_d, 2 * n_ref)  # noqa: E731
+            rows = torch.empty((reps, width), dtype=torch.int32, device=device)
+
+            def launch(st, r):
+                wtw_insert.wtw_insert_block(st, blocks[r], (n_ref, 2 * n_ref, k), w, hop, k, rows[r])
+        else:
+            blocks = [rows_d[r * k : (r + 1) * k].expand(b, k, 12).contiguous() for r in range(reps)]
+            lens = torch.tensor([[n_ref, 2 * n_ref, k]] * b, dtype=torch.int32, device=device)
+            fresh = lambda: wtw_insert.new_multi_state([ref_d] * b, [2 * n_ref] * b)  # noqa: E731
+            rows = torch.empty((reps, b, width), dtype=torch.int32, device=device)
+
+            def launch(st, r):
+                wtw_insert.multi_wtw_insert_block(st, blocks[r], lens, w, hop, k, rows[r])
+        before, st = [], fresh()  # each launch's state before it
+        for r in range(reps):
+            before.append(clone_state(st))
+            launch(st, r)
+        plens = [0] + rows.reshape(reps, -1)[:, 1].tolist()
+        ran = [r for r in range(reps) if plens[r + 1] > plens[r]]
+        kinds = {"mix": None, "window": ran, "append-only": [r for r in range(reps) if r not in ran]}
+        name = f"w={w} hop={hop}" + ("" if b is None else f" B={b}")
+        for kind, which in kinds.items():
+            states = []
+            if which is None:
+                def prepare():
+                    states[:] = [clone_state(before[0])]
+                run = lambda r: launch(states[0], r)  # noqa: E731
+                n = reps
+            else:
+                order = (which * 4)[:reps]
+
+                def prepare():
+                    states[:] = [clone_state(before[r]) for r in order]
+                run = lambda r: launch(states[r], order[r])  # noqa: E731
+                n = len(order)
+            if n == 0:
+                continue
+            out[f"{name} {kind}"] = queued_ms(run, n, prepare)
+            log(f"[wtw {name} k_block={k} {kind}]: {out[f'{name} {kind}']:.4f} ms/launch ({n} launches queued; "
+                f"{len(ran)} of the mix's {reps} ran a window)")
+    return out
+
+
 def band_times(tree) -> int:
-    """``--band-times [TREE]``: the band and wavefront kernels' times alone,
-    with the port imported from the checkout at ``TREE`` (another commit
-    unpacked there, built there) or from this one, for an A/B of two trees
-    on one card: set_live's ms a pair and µs a band update at every band of
-    ``SET_LIVE_TIMED_BANDS`` (phase 9's pairs), the K-insert kernel's
-    times of :func:`insert_times` and the wavefront kernels' of
-    :func:`wavefront_times`.  Prints the card, the package's path, a line
+    """``--band-times [TREE]``: the band, wavefront and WTW kernels' times
+    alone, with the port imported from the checkout at ``TREE`` (another
+    commit unpacked there, built there) or from this one, for an A/B of two
+    trees on one card: set_live's ms a pair and µs a band update at every
+    band of ``SET_LIVE_TIMED_BANDS`` (phase 9's pairs), the K-insert
+    kernel's times of :func:`insert_times`, the wavefront kernels' of
+    :func:`wavefront_times` and the WTW kernel's of :func:`wtw_times`.  Prints the card, the package's path, a line
     a case and last one JSON object of every number; exits 0."""
     import numpy as np
     import torch
@@ -1601,7 +1723,7 @@ def band_times(tree) -> int:
     card = smi.stdout.strip().splitlines()[0]
     log(card)
     package = os.path.dirname(real_time_audio_sync_tpu_torch.__file__)
-    log(f"band and wavefront kernel times of {package}")
+    log(f"band, wavefront and WTW kernel times of {package}")
     set_live_us = {}
     for c in SET_LIVE_TIMED_BANDS:
         rng = np.random.default_rng(9900 + c)
@@ -1612,8 +1734,9 @@ def band_times(tree) -> int:
         log(f"[set_live c={c}]: {line}")
     insert = insert_times(device)
     wave = wavefront_times(device)
+    wtw = wtw_times(device)
     print(json.dumps({"card": card, "package": package, "set_live_us_per_update": set_live_us,
-                      "insert_ms": insert, "wavefront_ms": wave}), flush=True)
+                      "insert_ms": insert, "wavefront_ms": wave, "wtw_ms": wtw}), flush=True)
     return 0
 
 
@@ -2284,14 +2407,20 @@ def wtw_stream(rng, w: int, hop: int, scenario: str, extra: int = 0):
     "margin": mid-stream, the live capacity puts live_ptr at n_cap-1-w
     after the first window; "capacity": chroma_ptr one column short of
     n_cap, w+3 columns ahead of live_ptr, so the second column finds no
-    room."""
+    room.  Four runs of "run" stress the cost's division: "zeros" has a
+    live frame of zeros here and there (NaN costs, paths stopped at row 0),
+    "tiny" live frames scaled by 1e-30, whose squares underflow to 0 (every
+    live norm 0 but no dot: a zero divisor, every cost -inf), "small" live frames
+    scaled by 2e-19 (finite, nonzero dots and divisors below 2^-60, outside
+    the kernel's fast division's range: every cost from its exact double
+    form), "ties" every frame the same (every cost equal)."""
     import numpy as np
 
     m = 3 * w + hop + 10 + extra
-    if scenario == "run":
+    if scenario in ("run", "zeros", "tiny", "small", "ties"):
         n_cap, cp0, lp0 = 2 * m, 0, 0
     elif scenario == "margin":
-        n_cap, cp0, lp0 = w + 1 + hop, w - 2, 0
+        n_cap, cp0, lp0 = w + 1 + hop, max(0, w - 2), 0
     else:
         n_cap = 2 * m
         cp0 = n_cap - 1
@@ -2299,6 +2428,15 @@ def wtw_stream(rng, w: int, hop: int, scenario: str, extra: int = 0):
     ref = unit_cols(rng.random((12, m)) + 0.05).T
     path = np.clip(np.cumsum(rng.integers(0, 3, n_cap + 64)) // 2, 0, m - 1)
     live = unit_cols((ref[path] + 0.1 * rng.random((n_cap + 64, 12))).T).T
+    if scenario == "zeros":
+        live[rng.random(len(live)) < 0.15] = 0.0
+    elif scenario == "tiny":
+        live = (live * 1e-30).astype(np.float32)
+    elif scenario == "small":
+        live = (live * 2e-19).astype(np.float32)
+    elif scenario == "ties":
+        ref[:] = ref[0]
+        live[:] = ref[0]
     return np.ascontiguousarray(ref), np.ascontiguousarray(live), m, n_cap, (cp0, lp0, 0)
 
 
@@ -2349,21 +2487,29 @@ def phase_wtw_vs_plain(device) -> float:
     largest |diff| (0.0 when equal)."""
     import numpy as np
 
-    from real_time_audio_sync_tpu_torch.ops import _build
+    from real_time_audio_sync_tpu_torch.ops import wtw_insert
 
     t0 = time.perf_counter()
-    lib = _build.load("wtw_insert").lib
     log("phase 11 (a): shared memory a block: " + ", ".join(
-        f"w={w}: {lib.wtw_shared_bytes(w, 12)} B" for w in sorted({w for w, _ in WTW_SHAPES})))
+        f"w={w}: {wtw_insert.plan(w)[2]} B" for w in sorted({w for w, _ in WTW_SHAPES})))
     worst, streams, launches, points = 0.0, 0, 0, 0
-    for w, hop in WTW_SHAPES:
-        for k in K_BLOCKS:
+    for w, hop, ks in [(w, hop, K_BLOCKS) for w, hop in WTW_SHAPES + WTW_EDGE_SHAPES] + [
+            (w, hop, WTW_WIDE_K_BLOCKS) for w, hop in WTW_WIDE_SHAPES]:
+        for k in ks:
             for scenario in WTW_SCENARIOS:
                 rng = np.random.default_rng(11000 + 100 * w + 10 * k + hop + len(scenario))
                 n, p, err = run_wtw_stream(rng, w, hop, k, scenario, device)
                 worst, streams, launches, points = max(worst, err), streams + 1, launches + n, points + p
-    log(f"phase 11 (a): WTW kernel == plain (tolerance 0) over {streams} streams ((w, hop) in {WTW_SHAPES} x "
-        f"k_block in {K_BLOCKS} x {WTW_SCENARIOS}, ragged blocks, 2 frozen launches after each stop), "
+    for w, hop in WTW_COST_SHAPES:
+        for scenario in WTW_COST_SCENARIOS:
+            rng = np.random.default_rng(11500 + w + hop + len(scenario))
+            n, p, err = run_wtw_stream(rng, w, hop, 8, scenario, device)
+            worst, streams, launches, points = max(worst, err), streams + 1, launches + n, points + p
+    log(f"phase 11 (a): WTW kernel == plain (tolerance 0) over {streams} streams ((w, hop) in "
+        f"{WTW_SHAPES + WTW_EDGE_SHAPES} x "
+        f"k_block in {K_BLOCKS} x {WTW_SCENARIOS}, {WTW_WIDE_SHAPES} x k_block in {WTW_WIDE_K_BLOCKS} x "
+        f"{WTW_SCENARIOS}, and {WTW_COST_SHAPES} x {WTW_COST_SCENARIOS} at k_block 8; "
+        f"ragged blocks, 2 frozen launches after each stop), "
         f"{launches} launches, {points} committed points, max |diff| {worst}, {time.perf_counter() - t0:.1f} s")
     return worst
 
@@ -2613,8 +2759,8 @@ def phase_wtw_main_path(device, root: str, card: str):
     log(f"phase 11 (b) [{card}]: kernel {'not measured' if dev_ms is None else f'{dev_ms:.4f} ms'} device time "
         f"a launch (profiler, {n_traced} of {reps} launches traced), {event_ms:.4f} ms (CUDA events, back to "
         f"back); plain {plain_ms:.3f} ms a launch (host copies); {timed_windows} windows in those {reps} "
-        f"launches; bound {bound_ms:.7f} ms a launch by {bound_by}; chain a window: {2 * w - 1} dependent "
-        f"diagonals (a block barrier each) and up to {2 * w - 1} backtrack steps on one thread")
+        f"launches; bound {bound_ms:.7f} ms a launch by {bound_by}; chain a window: at least {2 * w - 1} "
+        f"dependent cells and up to {2 * w - 1} backtrack steps on one lane")
     fresh_follower = WTWFollower(ref_wav, live_wav, LIVE_APP_WTW, engine="wtw_fused", device=device)
     trace_run(lambda: follow(fresh_follower, buffers[:WTW_TRACE_BUFFERS]), "phase 11 (b) [trace]")
 
@@ -2737,28 +2883,33 @@ def phase_wtw_multi_vs_plain(device) -> float:
     import numpy as np
     import torch
 
-    from real_time_audio_sync_tpu_torch.ops import _build, wtw_insert
+    from real_time_audio_sync_tpu_torch.ops import wtw_insert
 
     t0 = time.perf_counter()
-    lib = _build.load("wtw_insert").lib
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    log("phase 12 (a): blocks an SM (the occupancy calculator, 128 threads a block): " + ", ".join(
-        f"w={w}: {lib.wtw_blocks_per_sm(w, 12)} ({lib.wtw_shared_bytes(w, 12)} B of shared memory), "
-        f"{lib.wtw_blocks_per_sm(w, 12) * sms} blocks in one wave on {sms} SMs" for w in (20, 100, 128)))
+    plans = {w: wtw_insert.plan(w) for w in (20, 100, 128)}
+    log("phase 12 (a): blocks an SM (the occupancy calculator): " + ", ".join(
+        f"w={w}: {blocks} ({warps} warp(s), {threads} threads a block, {smem} B of shared memory), "
+        f"{blocks * sms} blocks in one wave on {sms} SMs" for w, (warps, threads, smem, blocks) in plans.items()))
     batches, launches, points = 0, 0, 0
-    for w, hop in WTW_SHAPES:
-        for k in K_BLOCKS:
-            for case in ("ragged", "stops", "shared"):
-                rng = np.random.default_rng(12000 + 100 * w + 10 * k + hop + len(case))
-                streams, shared = wtw_batch(rng, w, hop, case)
-                what = f"phase 12 (a) [w={w} hop={hop} k_block={k} {case}]"
-                n, p, sc = run_wtw_batch(streams, shared, w, hop, k, device, what)
-                if case == "stops" and not (sc[1, wtw_insert.WS_FLAGS] & 1
-                                            and sc[3, wtw_insert.WS_CHROMA] == streams[3][3]):
-                    raise AssertionError(f"{what}: the margin or the capacity stop was not reached")
-                batches, launches, points = batches + 1, launches + n, points + p
+    # the warp edges at k_block 8 only: phase 11 (a) runs them at every
+    # k_block, and a k_block-1 batch is the phase's slowest (a cut that
+    # bounds the script's time); one shape at a k_block over three stages
+    wide = WTW_WIDE_SHAPES[0] + (WTW_WIDE_K_BLOCKS[-1],)
+    for w, hop, k in [(w, hop, k) for w, hop in WTW_SHAPES for k in K_BLOCKS] + [
+            (w, hop, 8) for w, hop in WTW_EDGE_SHAPES] + [wide]:
+        for case in ("ragged", "stops", "shared"):
+            rng = np.random.default_rng(12000 + 100 * w + 10 * k + hop + len(case))
+            streams, shared = wtw_batch(rng, w, hop, case)
+            what = f"phase 12 (a) [w={w} hop={hop} k_block={k} {case}]"
+            n, p, sc = run_wtw_batch(streams, shared, w, hop, k, device, what)
+            if case == "stops" and not (sc[1, wtw_insert.WS_FLAGS] & 1
+                                        and sc[3, wtw_insert.WS_CHROMA] == streams[3][3]):
+                raise AssertionError(f"{what}: the margin or the capacity stop was not reached")
+            batches, launches, points = batches + 1, launches + n, points + p
     log(f"phase 12 (a): kernel #10 == plain == kernel #9 stream by stream (tolerance 0: rows, scalars, live "
-        f"history after every launch) over {batches} batches ((w, hop) in {WTW_SHAPES} x k_block in {K_BLOCKS} x "
+        f"history after every launch) over {batches} batches ((w, hop) in {WTW_SHAPES} x k_block in {K_BLOCKS} "
+        f"and {WTW_EDGE_SHAPES} x k_block 8, and (w, hop, k_block) {wide}, x "
         f"a ragged B = 3 of references of different lengths, a B = 5 with a margin and a capacity stop, a shared "
         f"reference x 3; per-stream counts 0..k_block; 2 frozen launches after the last stop), {launches} "
         f"launches, {points} committed points, {time.perf_counter() - t0:.1f} s")
@@ -3211,6 +3362,7 @@ def main() -> int:
     warp_kernel_report(builds["otw_insert"].log)
     insert_plans(device)
     wavefront_report(builds["wavefront"].log, device)
+    wtw_report(builds["wtw_insert"].log, device)
     phase_s = {"1-2": time.perf_counter() - t_start}  # seconds of each phase
 
     def timed(name, fn, *args):

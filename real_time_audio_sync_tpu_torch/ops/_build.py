@@ -65,6 +65,7 @@ SIGNATURES = {
             [_P] * 6 + [_I] * 11 + [ctypes.c_double] * 3 + [_I] * 12 + [_L] * 3 + [_P],
             ctypes.c_int,
         ),
+        "wtw_insert_plan": ([_I, _I, _P], ctypes.c_int),
         "wtw_blocks_per_sm": ([_I, _I], ctypes.c_int),
         "wtw_shared_bytes": ([_I, _I], ctypes.c_int),
         "wtw_error_string": ([_I], ctypes.c_char_p),

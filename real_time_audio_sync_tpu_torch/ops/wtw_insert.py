@@ -30,11 +30,16 @@ so scalar slot 5 (the TPU's window base) is left alone.  The delta row has
 JAX's layout (``d_pad = n_w·(2w−1) + 8`` slots, ``n_w = 1 + ⌈k_block /
 hop_frames⌉``), so the drain and the state converters keep JAX's rows.
 
-What bounds it on an H100: latency.  Each due window is a chain of 2w−1
-dependent diagonals with a block barrier each and a serial pointer chase;
-a launch moves a few KB.  The kernel is one block of 128 threads per
-stream (thread i owns DP row i), with the cost, acc and back tiles in
-shared memory.
+What bounds it on an H100: latency.  Each due window is a chain of at
+least 2w−1 dependent cells and a serial pointer chase of up to 2w−1 steps;
+a launch moves a few KB.  The kernel is one block of ⌈w/32⌉ warps per
+stream: the scalars and columns staged once a launch, each window's cost
+fused into a systolic DP (one row a lane, warps handing their bottom rows
+down in shared memory, no block barrier in the sweep), only the back steps
+kept (w² bytes), and one lane chasing them to the origin
+(:func:`plan` reports a launch's geometry; the design is in the source's
+header).  The kernel takes 12 features a frame (chroma); a CUDA launch of
+another width raises.
 
 Numerics shared by the kernel and :func:`wtw_insert_block_reference`, so
 the two agree bit for bit: :func:`window_cost` (a sequential 12-term sum of
@@ -67,8 +72,10 @@ from real_time_audio_sync_tpu_torch.ops.wavefront import (
 (WS_CHROMA, WS_LIVE, WS_REF, WS_PLEN, WS_FLAGS, WS_BASE, WS_LASTX, WS_LASTY) = range(8)
 N_SCALARS = 16
 N_STATUS = 8
-#: the widest window the kernel takes (one thread per DP row)
+#: the widest window the kernel takes (one lane per DP row, four warps)
 MAX_W = 128
+#: the features a frame the kernel takes
+FEATURES = 12
 
 #: launches of the CUDA kernel in this process (the plain version does not
 #: count); a caller may reset it to 0 before the run it wants to inspect
@@ -171,6 +178,29 @@ def _check(state: WTWState, cols: torch.Tensor, lens, w: int, hop_frames: int, k
         raise ValueError(f"need 0 <= n_valid ({n_valid}) <= k ({cols.shape[0]}) <= k_block ({k_block})")
 
 
+def _check_kernel(cols: torch.Tensor, f: int) -> None:
+    if cols.device.type != "cuda":
+        raise ValueError(f"no wtw_insert kernel for device {cols.device}")
+    if f != FEATURES:
+        raise ValueError(f"the wtw_insert kernel takes {FEATURES} features a frame, got {f}")
+
+
+def plan(w: int, f: int = FEATURES) -> Tuple[int, int, int, int]:
+    """``(warps a block, threads a block, dynamic shared bytes, blocks an
+    SM)`` of a launch at window ``w`` on the current CUDA device (the
+    library's ``wtw_insert_plan``; builds the kernel)."""
+    import ctypes
+
+    from real_time_audio_sync_tpu_torch.ops import _build
+
+    out = (ctypes.c_int * 4)()
+    lib = _build.load("wtw_insert").lib
+    err = lib.wtw_insert_plan(w, f, out)
+    if err != 0:
+        raise RuntimeError(f"wtw_insert_plan(w={w}, f={f}) failed: {lib.wtw_error_string(err).decode()}")
+    return tuple(out)
+
+
 def wtw_insert_block(state: WTWState, cols: torch.Tensor, lens, w: int, hop_frames: int, k_block: int,
                      row: torch.Tensor) -> None:
     """Append the first ``n_valid`` rows of ``cols`` (k ≤ k_block, F) and run
@@ -187,8 +217,7 @@ def wtw_insert_block(state: WTWState, cols: torch.Tensor, lens, w: int, hop_fram
         wtw_insert_block_reference(state, cols, lens, w, hop_frames, k_block, row)
         return
     _check(state, cols, lens, w, hop_frames, k_block, row)
-    if cols.device.type != "cuda":
-        raise ValueError(f"no wtw_insert kernel for device {cols.device}")
+    _check_kernel(cols, state.ref.shape[1])
     from real_time_audio_sync_tpu_torch.ops import _build
 
     lib = _build.load("wtw_insert").lib
@@ -358,8 +387,7 @@ def multi_wtw_insert_block(state: MultiWTWState, cols: torch.Tensor, lens: torch
         multi_wtw_insert_block_reference(state, cols, lens, w, hop_frames, k_block, rows)
         return
     _check_multi(state, cols, lens, w, hop_frames, k_block, rows)
-    if cols.device.type != "cuda":
-        raise ValueError(f"no wtw_insert kernel for device {cols.device}")
+    _check_kernel(cols, state.ref.shape[-1])
     from real_time_audio_sync_tpu_torch.ops import _build
 
     lib = _build.load("wtw_insert").lib
