@@ -40,7 +40,7 @@ Phases, each raising on failure (the process then exits non-zero):
    lane, strip and chunk edges M ∈ {1, 31, 32, 33, 64, 65} × N ∈ {1, 7,
    31, 32, 33, 100}, the thin (1, 3,118), (3,118, 1) and (2,873, 40), a
    cost with infinite cells, an all-ones tie case, and the main path's
-   (2,873, 3,118) and its transpose; then (80,000, 4), more strips than
+   (2,873, 3,118) and its transpose; then (40,000, 4), more strips than
    the card holds at once (float32, DTW).  ``acc``, ``back``, ``points``
    and ``length`` must be EQUAL (each cell is the same multiply, add and
    strict compare, so the tolerance is zero);
@@ -189,6 +189,31 @@ Phases, each raising on failure (the process then exits non-zero):
    append-only launches apart), CUDA events, the bound; the plain version
    at B = 4 from the same state, rows and states equal to the kernel's.
 
+13. the online engines on tensors (no hand-written kernel: ~800 small
+   PyTorch launches a hop; the K-insert and set_live kernels' counters must
+   stay 0 while they run), on phase 4's pair with its band, cut in depth to
+   fit 90 s (``ONLINE_*``) —
+   (a) ``OnlineTimeWarping(device="cuda")`` fed the first 400 of phase 4's
+   columns through ``eval/corpus._streaming_path``: its path equals
+   ``FusedStreamingEngine``'s (kernel #1) on those columns, point for
+   point, and over the first 150 hops its path, live buffer and
+   accumulator bits equal the same engine's on the CPU; the same for
+   ``LiveNoteV2(chroma_diff=True)``, whose path comes from the default
+   ``align_pair(ref, live, device="cuda")`` (livenote_v2_diff, the insert
+   mode) on ``_00`` against ``_01`` cut to its first 400 hops;
+   (b) ``ScoreFollower(engine="otw", fused=False)`` in the sync,
+   ``use_blocks`` and ``pipelined`` modes fed the first 200 hops'
+   2048-sample buffers: each path equals (a)'s on those hops; wall, RTF,
+   host time a hop, and (at the phase's end) ``cudaLaunchKernel`` calls a
+   hop from a profiler trace;
+   (c) ``OnlineTimeWarping.set_live`` on the first 480 frames of both
+   recordings: its path equals ``pallas_set_live``'s (kernel #2);
+   (d) ``MultiStreamFollower`` over the 18 pairs of phase 8's corpus
+   (B = 18, each stream on its own reference zero-padded to the longest),
+   one column a stream a hop for 200 hops: the shortest and the longest
+   reference's streams equal their solo engines; device bytes and the
+   wall a hop.
+
 The builds run in parallel (one ``nvcc`` per source).  Then each phase's
 seconds, one JSON line of per-kernel results, and last ``{"ok": true,
 "device": {...}}``.  ``--band-times [TREE]`` only times the two band
@@ -247,7 +272,7 @@ WAVEFRONT_SHAPES = ((1, 1), (1, 7), (7, 1), (5, 7), (33, 20), (40, 65))
 WAVEFRONT_EDGE_M = (1, 31, 32, 33, 64, 65)
 WAVEFRONT_EDGE_N = (1, 7, 31, 32, 33, 100)
 WAVEFRONT_THIN = ((1, 3118), (3118, 1), (2873, 40))
-WAVEFRONT_MANY_STRIPS = (80000, 4)
+WAVEFRONT_MANY_STRIPS = (40000, 4)
 # --band-times: the wavefront kernels' shapes (the main pair, the live
 # app's WTW window, the harness's), float32; the DP's also in float64
 WAVEFRONT_TIMED = ((2874, 3118), (100, 100), (20, 20))
@@ -352,6 +377,18 @@ WTW_MULTI_TIMING = ((100, 50, 1), (100, 50, WTW_SERVING_STREAMS), (100, 50, 256)
 WTW_TIMED = ((20, 10), (100, 50), (128, 64))
 WTW_MULTI_TIMED = ((100, 50, WTW_SERVING_STREAMS), (100, 50, 256), (128, 64, 256))
 WTW_MULTI_PLAIN_BATCH = 4
+# phase 13, cut in depth to fit its 90 s (the tensor engine's hop is ~800
+# launches): the pair's first hops that (a) runs (and the live recording's,
+# cut, that the default align_pair runs), the hops over which (a) holds the
+# card's state bits against the CPU engine's, the hops (b) feeds each
+# follower mode, the warm-up and traced hops of (b)'s profiler prefix, the
+# frames of both recordings (c)'s set_live aligns, and (d)'s hops
+ONLINE_HOPS = 400
+ONLINE_CPU_HOPS = 150
+ONLINE_MODE_HOPS = 200
+ONLINE_TRACE_WARMUP, ONLINE_TRACE_HOPS = 2, 4
+ONLINE_SET_LIVE_FRAMES = 480
+ONLINE_MULTI_HOPS = 200
 
 
 def log(msg: str) -> None:
@@ -3243,6 +3280,248 @@ def phase_wtw_serving(device, root: str, card: str):
                  "append_only_ms": idle_ms, "serving_launches": launches, "sweep_launches": sweep_launches}
 
 
+def no_kernel_launched(what: str) -> None:
+    """The online tensor engines launch no hand-written kernel: raise unless
+    the K-insert and set_live kernels' counters are still 0."""
+    from real_time_audio_sync_tpu_torch.ops import otw_insert, otw_set_live
+
+    counts = (otw_insert.launches, otw_insert.multi_launches, otw_set_live.launches)
+    if any(counts):
+        raise AssertionError(f"phase 13 [{what}]: hand-written kernels launched {counts}")
+
+
+def reset_kernel_counts() -> None:
+    from real_time_audio_sync_tpu_torch.ops import otw_insert, otw_set_live
+
+    otw_insert.launches = otw_insert.multi_launches = otw_set_live.launches = 0
+
+
+def fused_path(ref, cols, band, variant: str, device):
+    """Kernel #1's path on these columns (k_block 8), the comparison run."""
+    from real_time_audio_sync_tpu_torch.models import FusedStreamingEngine
+    from real_time_audio_sync_tpu_torch.models.online_core import ENGINE_OVERRIDES
+
+    eng = FusedStreamingEngine(ref, band, ENGINE_OVERRIDES[variant], k_block=8, device=device)
+    eng.insert_block_nowait(cols)
+    eng.flush()
+    return eng.path_array
+
+
+def same_state_bits(card, cpu, what: str) -> None:
+    """The card engine's path, live buffer and accumulator equal the CPU
+    engine's bit for bit."""
+    import numpy as np
+    import torch
+
+    if not np.array_equal(card.path_array, cpu.path_array):
+        raise AssertionError(f"phase 13 [{what}]: the card's path differs from the CPU's")
+    for name in ("live", "acc"):
+        if not torch.equal(getattr(card.state, name).cpu(), getattr(cpu.state, name)):
+            raise AssertionError(f"phase 13 [{what}]: the card's {name} bits differ from the CPU's")
+
+
+def launches_a_hop(make_follower, buffers) -> float:
+    """``cudaLaunchKernel`` calls a hop of a fresh follower over
+    ``ONLINE_TRACE_HOPS`` buffers after a warm-up, from a profiler trace."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    f = make_follower()
+    f.start()
+    for buf in buffers[:ONLINE_TRACE_WARMUP]:
+        f.receive_audio(buf)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for buf in buffers[ONLINE_TRACE_WARMUP : ONLINE_TRACE_WARMUP + ONLINE_TRACE_HOPS]:
+            f.receive_audio(buf)
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages() if e.key == "cudaLaunchKernel") / ONLINE_TRACE_HOPS
+
+
+def cut_recording(wav: str, hops: int, out_dir: str) -> str:
+    """The first ``hops`` hops of a recording (and its beat CSV up to
+    there) as a recording of its own in ``out_dir``: a depth cut that the
+    pair runners take like any pair."""
+    from real_time_audio_sync_tpu_torch.utils.wavio import load_wav, write_wav
+
+    pcm, fs = load_wav(wav)
+    pcm = pcm[: (hops + 1) * 2048]
+    os.makedirs(out_dir, exist_ok=True)
+    out = os.path.join(out_dir, os.path.basename(wav)[:-4] + f"_first{hops}.wav")
+    write_wav(out, pcm, fs)
+    with open(wav[:-4] + ".csv") as src, open(out[:-4] + ".csv", "w") as dst:
+        dst.writelines(line for line in src if line.strip() and float(line.split(",")[0]) < len(pcm) / fs)
+    return out
+
+
+def phase_online(device, root: str, card: str) -> None:
+    """Phase 13 (module docstring).  Each part runs a prefix of the pair
+    (``ONLINE_*`` hops): the tensor engine issues ~800 small launches a
+    hop, 12-15 ms of host a hop on the H100 machine (PR 18)."""
+    import numpy as np
+    import torch
+
+    from real_time_audio_sync_tpu_torch.eval import corpus, synthetic
+    from real_time_audio_sync_tpu_torch.models import LiveNoteV2, OnlineTimeWarping
+    from real_time_audio_sync_tpu_torch.models.online_core import ENGINE_OVERRIDES
+    from real_time_audio_sync_tpu_torch.ops import otw_set_live
+    from real_time_audio_sync_tpu_torch.parallel import MultiStreamFollower
+    from real_time_audio_sync_tpu_torch.streaming.runtime import ScoreFollower
+    from real_time_audio_sync_tpu_torch.utils.wavio import load_wav
+
+    t_phase = time.perf_counter()
+    part_s = {}
+
+    def part_done(name, since):
+        part_s[name] = time.perf_counter() - since
+        return time.perf_counter()
+
+    ref_wav, live_wav = render_piece(root)
+    pcm, fs = load_wav(live_wav)
+    buffers = [pcm[s : s + 2048] for s in range(0, len(pcm), 2048)]
+    cols = hop_columns(buffers, device)  # the follower's columns, on the card
+    ref = corpus._cached_chroma(ref_wav, np.float32, device)
+    hops = ONLINE_HOPS
+
+    t_part = part_done("setup", t_phase)
+
+    # (a) OnlineTimeWarping through _streaming_path == kernel #1; its first
+    # hops' state == the CPU engine's, bit for bit
+    cpu = OnlineTimeWarping(ref.cpu(), PARAMS, device="cpu")
+    t0 = time.perf_counter()
+    corpus._streaming_path(cpu, cols[:, :ONLINE_CPU_HOPS].cpu())
+    cpu_s = time.perf_counter() - t0
+    reset_kernel_counts()
+    eng = OnlineTimeWarping(ref, PARAMS, device=device)
+    t0 = time.perf_counter()
+    corpus._streaming_path(eng, cols[:, :ONLINE_CPU_HOPS])
+    wall = time.perf_counter() - t0
+    same_state_bits(eng, cpu, "a: otw")
+    del cpu
+    t0 = time.perf_counter()
+    otw_path = np.asarray(corpus._streaming_path(eng, cols[:, ONLINE_CPU_HOPS:hops]))
+    torch.cuda.synchronize()
+    wall += time.perf_counter() - t0
+    no_kernel_launched("a: otw")
+    if len(otw_path) == 0 or not np.array_equal(otw_path, fused_path(ref, cols[:, :hops], PARAMS, "otw", device)):
+        raise AssertionError(f"phase 13 [a: otw]: path ({otw_path.shape}) differs from kernel #1's")
+    log(f"phase 13 (a) [otw]: the first {hops} of {cols.shape[1]} hops through _streaming_path in {wall:.3f} s "
+        f"({1e3 * wall / hops:.2f} ms a hop; the CPU engine {1e3 * cpu_s / ONLINE_CPU_HOPS:.2f} ms); path "
+        f"{len(otw_path)} points == FusedStreamingEngine (kernel #1) on those columns; first {ONLINE_CPU_HOPS} "
+        f"hops: path, live and acc bits == the CPU engine's; no hand-written kernel launched")
+
+    t_part = part_done("a otw", t_part)
+    live_cut = cut_recording(live_wav, ONLINE_HOPS, os.path.join(root, "online_cut"))
+    reset_kernel_counts()
+    t0 = time.perf_counter()
+    default = corpus.align_pair(ref_wav, live_cut, device=device)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    no_kernel_launched("a: align_pair default")
+    ref_d = corpus._cached_chroma(ref_wav, np.float32, device, "chroma_diff")
+    live_d = corpus._cached_chroma(live_cut, np.float32, device, "chroma_diff")
+    if default.engine != "livenote_v2_diff" or len(default.path) == 0 or not np.array_equal(
+            default.path, fused_path(ref_d, live_d, corpus.DEFAULT_PARAMS, "livenote_v2_diff", device)):
+        raise AssertionError(f"phase 13 [a: {default.engine}]: the default align_pair's path differs from kernel #1's")
+    card_d = LiveNoteV2(ref_d, corpus.DEFAULT_PARAMS, chroma_diff=True, device=device)
+    cpu_d = LiveNoteV2(ref_d.cpu(), corpus.DEFAULT_PARAMS, chroma_diff=True, device="cpu")
+    corpus._streaming_path(card_d, live_d[:, :ONLINE_CPU_HOPS])
+    corpus._streaming_path(cpu_d, live_d[:, :ONLINE_CPU_HOPS].cpu())
+    same_state_bits(card_d, cpu_d, "a: livenote_v2_diff")
+    del card_d, cpu_d
+    s = default.score
+    log(f"phase 13 (a) [livenote_v2_diff]: align_pair(ref, live) (the default engine and insert mode) on _00 "
+        f"against _01's first {ONLINE_HOPS} hops ({live_d.shape[1]} chroma-diff frames) in {wall:.3f} s; path "
+        f"{len(default.path)} points == FusedStreamingEngine (kernel #1); first {ONLINE_CPU_HOPS} hops: path, "
+        f"live and acc bits == the CPU engine's; PathScorer pct_off_beats {s.pct_off_beats}, pct_off_3s "
+        f"{s.pct_off_3s}")
+
+    t_part = part_done("a livenote_v2_diff", t_part)
+
+    # (b) the follower's non-fused modes, each == (a)'s path on its hops
+    fed = buffers[: ONLINE_MODE_HOPS + 1]  # the first buffer makes no hop
+    audio_s = sum(len(b) for b in fed) / fs
+    modes = (("sync", {}), ("use_blocks", {"use_blocks": True}), ("pipelined", {"pipelined": True}))
+    for mode, kw in modes:
+        follower = ScoreFollower(ref_wav, "otw", PARAMS, **kw, device=device)
+        torch.cuda.synchronize()
+        reset_kernel_counts()
+        t0, c0 = time.perf_counter(), time.process_time()
+        follow(follower, fed)
+        torch.cuda.synchronize()
+        wall, host_s = time.perf_counter() - t0, time.process_time() - c0
+        no_kernel_launched(f"b: {mode}")
+        path = np.asarray(follower.path)
+        n_hops = follower.engine._frames_dispatched
+        if n_hops != ONLINE_MODE_HOPS or len(path) == 0 or not np.array_equal(path, otw_path[: len(path)]):
+            raise AssertionError(f"phase 13 [b: {mode}]: {n_hops} hops, path ({len(path)} points) differs from (a)'s")
+        log(f"phase 13 (b) [{mode}]: the first {n_hops} hops ({audio_s:.1f} s audio) in {wall:.3f} s: RTF "
+            f"{audio_s / wall:.1f}, wall {1e6 * wall / n_hops:.0f} us a hop, host CPU {1e6 * host_s / n_hops:.0f} us "
+            f"a hop; path {len(path)} points == (a)'s")
+
+    t_part = part_done("b", t_part)
+
+    # (c) set_live on the pair's first seconds == kernel #2
+    eng = OnlineTimeWarping(ref[:, :ONLINE_SET_LIVE_FRAMES], PARAMS, device=device)
+    live_part = cols[:, :ONLINE_SET_LIVE_FRAMES]
+    torch.cuda.synchronize()
+    reset_kernel_counts()
+    t0 = time.perf_counter()
+    eng.set_live(live_part)
+    got = eng.path
+    wall = time.perf_counter() - t0
+    no_kernel_launched("c: set_live")
+    want = otw_set_live.pallas_set_live(ref[:, :ONLINE_SET_LIVE_FRAMES], live_part, PARAMS, **ENGINE_OVERRIDES["otw"],
+                                        device=device)[0]
+    if len(got) == 0 or not np.array_equal(got, np.asarray(want)):
+        raise AssertionError(f"phase 13 [c]: set_live's path ({len(got)} points) differs from kernel #2's")
+    steps = 2 * ONLINE_SET_LIVE_FRAMES
+    log(f"phase 13 (c): OnlineTimeWarping.set_live on the first {ONLINE_SET_LIVE_FRAMES} frames of both recordings "
+        f"({steps} steps issued) in {wall:.3f} s ({1e3 * wall / steps:.2f} ms a step); path {len(got)} points == "
+        f"pallas_set_live (kernel #2)")
+
+    t_part = part_done("c", t_part)
+
+    # (d) B = 18 streams on their own references, one column each a hop
+    pairs = [p for p in corpus.corpus_pairs(root) if os.path.basename(os.path.dirname(p[0])) in synthetic.FULL_PIECES]
+    refs = [corpus._cached_chroma(r, np.float32, device) for r, _ in pairs]
+    lives = [corpus._cached_chroma(live, np.float32, device) for _, live in pairs]
+    n_hops = ONLINE_MULTI_HOPS
+    batch = torch.stack([x[:, :n_hops] for x in lives])
+    torch.cuda.reset_peak_memory_stats()
+    ms = MultiStreamFollower(refs, PARAMS, device=device)
+    state_bytes = sum(x.numel() * x.element_size() for x in ms.states) + ms.refs.numel() * ms.refs.element_size()
+    torch.cuda.synchronize()
+    reset_kernel_counts()
+    t0 = time.perf_counter()
+    for h in range(n_hops):
+        ms.insert(batch[:, :, h])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    no_kernel_launched("d: MultiStreamFollower")
+    paths = ms.paths()
+    for k in (int(np.argmin(ms.ref_lens)), int(np.argmax(ms.ref_lens))):
+        solo = OnlineTimeWarping(refs[k], PARAMS, device=device)
+        if not np.array_equal(np.asarray(corpus._streaming_path(solo, batch[k])), paths[k]):
+            raise AssertionError(f"phase 13 [d]: stream {k} ({ms.ref_lens[k]} ref frames) differs from its solo engine")
+    log(f"phase 13 (d): MultiStreamFollower, B = {ms.b} (the sweep's pairs), references of {ms.ref_lens.min()}-"
+        f"{ms.ref_lens.max()} frames (n_max {ms.refs.shape[2]}): {n_hops} hops in {wall:.3f} s "
+        f"({1e3 * wall / n_hops:.2f} ms a hop, {1e3 * wall / n_hops / ms.b:.3f} ms a stream a hop); state on the card "
+        f"{state_bytes / 2**30:.3f} GiB (peak allocated {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB); the "
+        f"shortest and the longest reference's streams == their solo engines")
+    del ms, batch
+    t_part = part_done("d", t_part)
+
+    # launches a hop of each follower mode, from a trace of a prefix
+    for mode, kw in modes:
+        per_hop = launches_a_hop(lambda: ScoreFollower(ref_wav, "otw", PARAMS, **kw, device=device), buffers)
+        log(f"phase 13 (b) [{mode}]: {per_hop:.1f} cudaLaunchKernel a hop (profiler, {ONLINE_TRACE_HOPS} hops "
+            f"after {ONLINE_TRACE_WARMUP})")
+    part_done("traces", t_part)
+    log("phase 13: seconds a part: " + ", ".join(f"{k} {v:.1f}" for k, v in part_s.items()))
+    log(f"phase 13: {time.perf_counter() - t_phase:.1f} s in all; {card}")
+
+
 def ptxas_report(text: str) -> dict:
     """{mangled kernel name: (registers, stack bytes, spill store bytes,
     spill load bytes)} from nvcc's ``--ptxas-options=-v`` output."""
@@ -3401,6 +3680,7 @@ def main() -> int:
             multi_wtw_err = timed("12", phase_wtw_multi_vs_plain, device)
             multi_wtw_row, multi_wtw_extra = timed("12", phase_wtw_serving, device, root, card)
         log(f"phase 12: {phase_s['12']:.1f} s in all")
+        timed("13", phase_online, device, root, card)
 
     # "ms" is each kernel's device time per launch (profiler; the CUDA-event
     # time when the trace holds none); otw_insert_block's at k_block 8,

@@ -3,10 +3,13 @@
 
 Examples::
 
-    # offline DTW on one pair, on the card
+    # the ported engines on one pair, on the card (test_simple.py driver)
     python -m real_time_audio_sync_tpu_torch.eval --ref ref.wav --live live.wav
 
-    # corpus sweep (test_all equivalent), on the CPU
+    # one engine
+    python -m real_time_audio_sync_tpu_torch.eval --ref r.wav --live l.wav --engine otw
+
+    # corpus sweep (test_all equivalent: livenote_v2_diff, streamed), on the CPU
     python -m real_time_audio_sync_tpu_torch.eval --corpus Songs/ --device cpu
 
     # an online engine over the whole corpus in one set_live launch
@@ -15,10 +18,13 @@ Examples::
     # score a recorded field log against ground-truth CSVs
     python -m real_time_audio_sync_tpu_torch.eval --score-log tests/x.txt --ref-csv a.csv --live-csv b.csv
 
-Ported so far: ``--engine dtw`` (the default); with ``--mode fused`` the
-online engines otw, livenote, livenote_v2 and livenote_v2_diff; and for
-one pair ``--engine wtw`` with ``--mode fused`` or ``--mode oracle``; the
-rest raise ``NotImplementedError`` naming their ROADMAP.md item.
+Ported so far: ``--engine dtw`` and the online engines otw, livenote,
+livenote_v2 and livenote_v2_diff in both modes; and ``--engine wtw`` with
+``--mode fused`` or ``--mode oracle``.  Without ``--engine``, ``--corpus``
+sweeps livenote_v2_diff (the JAX default) and ``--ref/--live`` runs the
+engines whose insert mode is ported; the JAX CLI there runs every engine,
+"wtw" too, whose insert mode (AsyncWTW, ROADMAP.md Queue 1 item 7c) raises
+``NotImplementedError`` here.
 """
 
 from __future__ import annotations
@@ -32,9 +38,9 @@ def main(argv=None) -> int:
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--ref", help="reference recording (wav)")
     ap.add_argument("--live", help="live recording (wav)")
-    ap.add_argument("--engine", default="dtw", help=(
-        "dtw|otw|livenote|livenote_v2|livenote_v2_diff|wtw (default: dtw, whose insert mode is ported; "
-        "the online engines run with --mode fused)"))
+    ap.add_argument("--engine", default=None, help=(
+        "dtw|otw|livenote|livenote_v2|livenote_v2_diff|wtw (default: the engines whose insert mode is "
+        "ported for --ref/--live, livenote_v2_diff for --corpus)"))
     ap.add_argument("--corpus", help="corpus directory (test_all sweep)")
     ap.add_argument("--field-log", help="recorded field log for the BSO cross-check during --corpus")
     ap.add_argument("--score-log", help="score a recorded field log instead of aligning")
@@ -71,19 +77,22 @@ def main(argv=None) -> int:
     if args.corpus:
         from real_time_audio_sync_tpu_torch.eval.corpus import CorpusRunner
 
-        runner = CorpusRunner(args.corpus, args.engine, dtype=dtype, mode=args.mode,
+        runner = CorpusRunner(args.corpus, args.engine or "livenote_v2_diff", dtype=dtype, mode=args.mode,
                               device=args.device)
         runner.evaluate(field_log=args.field_log)
         return 0
 
     if args.ref and args.live:
-        from real_time_audio_sync_tpu_torch.eval.corpus import align_pair
+        from real_time_audio_sync_tpu_torch.eval.corpus import PORTED_ENGINES, align_pair, run_simple
 
-        result = align_pair(args.ref, args.live, args.engine, dtype=dtype, mode=args.mode, device=args.device)
-        s = result.score
-        for t in (1, 3, 5, 10):
-            print(f"Percent incorrect (within {t} beat{'s' if t > 1 else ''}): {s.pct_off_beats[t]} %")
-        print(f"Percent incorrect (within 3 seconds): {s.pct_off_3s} %")
+        if args.engine:
+            result = align_pair(args.ref, args.live, args.engine, dtype=dtype, mode=args.mode, device=args.device)
+            s = result.score
+            for t in (1, 3, 5, 10):
+                print(f"Percent incorrect (within {t} beat{'s' if t > 1 else ''}): {s.pct_off_beats[t]} %")
+            print(f"Percent incorrect (within 3 seconds): {s.pct_off_3s} %")
+        else:
+            run_simple(args.ref, args.live, PORTED_ENGINES, dtype=dtype, device=args.device)
         return 0
 
     ap.print_help()

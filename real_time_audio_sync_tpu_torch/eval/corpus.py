@@ -11,16 +11,17 @@ when one is given (tests.py:245-251).  Pairs with missing audio are
 reported and skipped.
 
 Ported so far: ``engine="dtw"`` (offline DTW, the wavefront kernels on a
-CUDA device), ``mode="fused"`` of the online engines (otw, livenote,
-livenote_v2, livenote_v2_diff: whole-pair set_live, the set_live kernel on
-a CUDA device; a corpus sweep of two or more pairs is one batched
-launch), and ``engine="wtw"`` with modes "fused" (the fused WTW kernel;
-a corpus sweep of two or more pairs is one ``FusedMultiStreamWTW`` run,
-one launch a block for every pair) and "oracle" (the host ``WTW``).  What
-is not ported yet raises ``NotImplementedError`` naming its ROADMAP.md
-item: the online engines' streaming insert mode (Queue 1 item 1), and
-WTW's insert mode and its fused mode above 128-frame windows (both
-``AsyncWTW``, item 7c).
+CUDA device); the online engines (otw, livenote, livenote_v2,
+livenote_v2_diff) in ``mode="insert"`` (frame-by-frame streaming through
+the tensor engines, the default, as in the JAX package) and
+``mode="fused"`` (whole-pair set_live, the set_live kernel on a CUDA
+device; a corpus sweep of two or more pairs is one batched launch); and
+``engine="wtw"`` with modes "fused" (the fused WTW kernel; a corpus sweep
+of two or more pairs is one ``FusedMultiStreamWTW`` run, one launch a
+block for every pair) and "oracle" (the host ``WTW``).  What is not ported
+yet raises ``NotImplementedError`` naming its ROADMAP.md item: WTW's
+insert mode and its fused mode above 128-frame windows (both ``AsyncWTW``,
+item 7c).
 """
 
 from __future__ import annotations
@@ -51,7 +52,9 @@ DEFAULT_WTW_PARAMS = {  # tests.py:174
 }
 
 ENGINES = ("dtw", "otw", "livenote", "livenote_v2", "livenote_v2_diff", "wtw")
-PORTED_ENGINES = ("dtw",)
+#: the engines whose insert mode is ported: run_simple's default until
+#: AsyncWTW (ROADMAP.md Queue 1, item 7c) brings "wtw"
+PORTED_ENGINES = ("dtw", "otw", "livenote", "livenote_v2", "livenote_v2_diff")
 
 # Feature memo for corpus sweeps: each recording appears in up to |recs|−1
 # pairs of a sweep and in every engine of it.  Keyed by (path, mtime, kind,
@@ -114,10 +117,41 @@ class PairResult:
     score: ScoreResult
 
 
+def _streaming_path(engine, live_seq) -> List[Tuple[int, int]]:
+    """Frame-by-frame streaming (the reference harness regime,
+    tests.py:160-163) of the (F, T) ``live_seq``, through the pipelined
+    surface when the engine has one: ``insert_nowait`` and a lazy stop
+    never wait for the card, and post-stop inserts are frozen no-ops, so
+    the committed path is the synchronous ``insert``'s."""
+    nowait = getattr(engine, "insert_nowait", None)
+    if nowait is not None and hasattr(engine, "flush"):
+        for i in range(live_seq.shape[1]):
+            if nowait(live_seq[:, i]) == "stop":
+                break
+        engine.flush()
+    else:
+        for i in range(live_seq.shape[1]):
+            if engine.insert(live_seq[:, i]) == "stop":
+                break
+    return engine.path
+
+
+def _online_engine(engine: str, ref_seq, params, dtype, device):
+    """The tensor engine of an online ``engine`` name on ``ref_seq``."""
+    from real_time_audio_sync_tpu_torch.models import LiveNote, LiveNoteV2, OnlineTimeWarping
+
+    if engine == "otw":
+        return OnlineTimeWarping(ref_seq, params, dtype=dtype, device=device)
+    if engine == "livenote":
+        return LiveNote(ref_seq, params, dtype=dtype, device=device)
+    # livenote_v2_diff: Euclidean cost on chroma-diff (tests.py:156)
+    return LiveNoteV2(ref_seq, params, chroma_diff=engine == "livenote_v2_diff", dtype=dtype, device=device)
+
+
 def align_pair(
     ref_wav: str,
     live_wav: str,
-    engine: str = "dtw",
+    engine: str = "livenote_v2_diff",
     params: Optional[dict] = None,
     dtype=np.float32,
     mode: str = "insert",
@@ -129,8 +163,12 @@ def align_pair(
 
     ``engine="dtw"`` extracts both chromas, runs the dense offline DTW
     (``models/dtw.dtw_device``; the banded ``dtw_auto`` above the dense
-    byte budget) and fetches only the backtracked path.  ``mode="fused"``
-    with an online engine aligns the whole pair with
+    byte budget) and fetches only the backtracked path.  An online engine
+    (the default, ``"livenote_v2_diff"``, on chroma-diff features) in
+    ``mode="insert"`` (the default) streams the live features frame by
+    frame through its tensor engine (``_streaming_path``, band ``params``
+    or :data:`DEFAULT_PARAMS`, in ``dtype``); ``mode="fused"`` aligns the
+    whole pair with
     :func:`~real_time_audio_sync_tpu_torch.ops.otw_set_live.pallas_set_live`
     (chroma-diff features for ``livenote_v2_diff``), band ``params`` or
     :data:`DEFAULT_PARAMS` — the fast path for corpus sweeps; set_live's
@@ -140,8 +178,8 @@ def align_pair(
     harness's quirk, tests.py:186) through :class:`FusedWTW` (``mode=
     "fused"``, k_block 8) or the host :class:`WTW` (``mode="oracle"``, the
     parity oracle), with ``params`` or :data:`DEFAULT_WTW_PARAMS`.
-    Argument checks are the JAX package's; the engines and modes not ported
-    yet raise ``NotImplementedError``."""
+    Argument checks are the JAX package's; WTW's insert mode, not ported
+    yet, raises ``NotImplementedError``."""
     if engine not in ENGINES:
         raise ValueError(f"unknown engine {engine!r}; choose from {ENGINES}")
     if mode not in ("insert", "fused", "oracle"):
@@ -159,18 +197,15 @@ def align_pair(
         path = _wtw_path(ref_wav, live_wav, params or DEFAULT_WTW_PARAMS, dtype, mode, device)
         score = PathScorer.for_pair(ref_wav, live_wav).score(path)
         return PairResult(ref_wav, live_wav, engine, np.asarray(path), score)
-    if engine != "dtw" and mode != "fused":
-        raise NotImplementedError(
-            f"align_pair({engine!r}): the online engines' streaming insert mode is not ported yet: "
-            "ROADMAP.md Queue 1, item 1")
-
     kind = _feature_kind(engine)
     ref_seq = _cached_chroma(ref_wav, dtype, device, kind)
     live_seq = _cached_chroma(live_wav, dtype, device, kind)
     m, n = live_seq.shape[1], ref_seq.shape[1]
-    if engine != "dtw":  # an online engine, fused
+    if engine != "dtw" and mode == "fused":
         path, _, _, _ = pallas_set_live(ref_seq, live_seq, params or DEFAULT_PARAMS, **ENGINE_OVERRIDES[engine],
                                         device=device)
+    elif engine != "dtw":
+        path = _streaming_path(_online_engine(engine, ref_seq, params or DEFAULT_PARAMS, dtype, device), live_seq)
     elif m * n * _DENSE_BYTES_PER_CELL > _dense_limit_bytes():
         # hour-scale pairs: the same delegation as the public DTW()
         path, _, _ = dtw_auto(live_seq, ref_seq, device=device)
@@ -251,7 +286,7 @@ class CorpusRunner:
     batched set_live launch, WTW as the streams of one
     :class:`~real_time_audio_sync_tpu_torch.parallel.FusedMultiStreamWTW`."""
 
-    def __init__(self, recordings_dir: str, engine: str = "dtw", params: Optional[dict] = None,
+    def __init__(self, recordings_dir: str, engine: str = "livenote_v2_diff", params: Optional[dict] = None,
                  dtype=np.float32, mode: str = "insert", *, device="cuda"):
         if engine == "wtw" and mode == "insert":
             raise NotImplementedError(
@@ -375,8 +410,11 @@ class CorpusRunner:
 def run_simple(ref_wav: str, live_wav: str, engines: Sequence[str] = PORTED_ENGINES, dtype=np.float32,
                verbose: bool = True, *, device="cuda") -> Dict[str, PairResult]:
     """The test_simple.py:94-198 smoke run: each engine on one pair in the
-    insert mode, with bucket accuracies.  By default the ported engines;
-    raises at the first engine that is not ported yet."""
+    insert mode, with bucket accuracies.  By default the engines whose
+    insert mode is ported (:data:`PORTED_ENGINES`); the JAX package's
+    default, every engine, adds "wtw", whose insert mode runs AsyncWTW
+    (not ported yet: ROADMAP.md Queue 1, item 7c), and an engine that is
+    not ported raises."""
     out = {}
     for engine in engines:
         result = align_pair(ref_wav, live_wav, engine, dtype=dtype, device=device)

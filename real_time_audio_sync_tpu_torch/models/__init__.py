@@ -1,4 +1,5 @@
-"""Alignment engines: the fused streaming OTW/LiveNote/LiveNoteV2 engine
+"""Alignment engines: the online OTW/LiveNote/LiveNoteV2 engines on tensors
+(``otw``, ``livenote``, ``livenote_v2``) and the fused streaming engine
 (``fused_streaming``), their shared core (``online_core``), offline DTW
 (``dtw``), and windowed time warping — the host engine (``wtw``) and the
 fused one (``fused_wtw``)."""
@@ -10,4 +11,7 @@ from real_time_audio_sync_tpu_torch.models.fused_streaming import (  # noqa: F40
     iter_delta_rows,
 )
 from real_time_audio_sync_tpu_torch.models.fused_wtw import FusedWTW  # noqa: F401
+from real_time_audio_sync_tpu_torch.models.livenote import LiveNote  # noqa: F401
+from real_time_audio_sync_tpu_torch.models.livenote_v2 import LiveNoteV2  # noqa: F401
+from real_time_audio_sync_tpu_torch.models.otw import OnlineTimeWarping  # noqa: F401
 from real_time_audio_sync_tpu_torch.models.wtw import WTW  # noqa: F401

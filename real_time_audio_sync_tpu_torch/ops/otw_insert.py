@@ -61,9 +61,9 @@ import dataclasses
 from typing import Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 
 from real_time_audio_sync_tpu_torch.models.online_core import BOTH, COL, PREV_NONE, ROW, OnlineConfig
+from real_time_audio_sync_tpu_torch.ops.band import _cost_vector, _minplus_doubling  # noqa: F401  (banded_dtw's scan)
 
 # scalar-state slots (int32[16]), as pallas_otw.py:638-641
 (S_T, S_J, S_RC, S_PREV, S_PLEN, S_LASTX, S_LASTY, S_FIRST,
@@ -474,34 +474,8 @@ def multi_insert_block_reference(state: MultiOTWState, cols: torch.Tensor, ks: t
 
 def _cost(rows: torch.Tensor, fixed: torch.Tensor, euclidean: bool) -> torch.Tensor:
     """Cost of each of ``rows`` (m, F) against ``fixed`` (F,), summed
-    sequentially over f as the kernel does."""
-    if euclidean:
-        d = rows - fixed
-        terms = d * d
-    else:
-        terms = rows * fixed
-    s = torch.zeros(rows.shape[0], dtype=torch.float32, device=rows.device)
-    for f in range(rows.shape[1]):
-        s = s + terms[:, f]
-    # the square root correctly rounded, as the kernel's __fsqrt_rn: ATen's
-    # vectorised float32 sqrt on AVX-512 CPUs is not (about 0.6 % of values
-    # land one ulp off), while a float64 sqrt rounded to float32 is
-    return torch.sqrt(s.double()).float() if euclidean else 1.0 - s
-
-
-def _minplus_doubling(b: torch.Tensor, cost: torch.Tensor) -> torch.Tensor:
-    """Hillis–Steele inclusive scan of ``r_k = min(b_k, r_{k-1} + c_k)``,
-    in pallas_otw.py:87-108's stage order."""
-    n = b.shape[0]
-    r, csum = b, cost
-    shift = 1
-    while shift < n:
-        r_sh = F.pad(r[:-shift], (shift, 0), value=float("inf"))
-        c_sh = F.pad(csum[:-shift], (shift, 0))
-        r = torch.minimum(r, r_sh + csum)
-        csum = c_sh + csum
-        shift *= 2
-    return r
+    sequentially over f as the kernel does (``ops/band._cost_vector``)."""
+    return _cost_vector(fixed[None], rows.T[None], euclidean)[0]
 
 
 def _band_step(fresh_cost, prev_line, lo, neighbour_init, no_diag_at, sentinel):

@@ -1,11 +1,17 @@
 """Multi-stream serving: follow B concurrent live performances on one card.
 
-The counterpart of the JAX package's ``parallel/serving.py``
-``FusedMultiStreamFollower``: one launch of the K-insert kernel per hop
-block for the whole batch (``ops/otw_insert.multi_insert_block``, a grid of
-B thread blocks, one per stream), O(c²) band state per stream instead of a
-dense (2N, N) matrix.  Users: one card following many live performances,
-or one concert with many listeners who joined at different times.
+The counterparts of the JAX package's ``parallel/serving.py``:
+
+- ``FusedMultiStreamFollower``: one launch of the K-insert kernel per hop
+  block for the whole batch (``ops/otw_insert.multi_insert_block``, a grid
+  of B thread blocks, one per stream), O(c²) band state per stream instead
+  of a dense (2N, N) matrix.  Users: one card following many live
+  performances, or one concert with many listeners who joined at
+  different times.
+- ``MultiStreamFollower``: the tensor engine of ``models/online_core``
+  over B streams at once, one batched insert step a hop (the JAX
+  follower's ``vmap``), each stream on its own reference zero-padded to
+  the longest, with a dense (2·N_max, N_max) accumulator a stream.
 
 Two layouts with bit-equal paths, as in the JAX package:
 
@@ -19,14 +25,13 @@ Two layouts with bit-equal paths, as in the JAX package:
   kernel ``_pallas_multi_insert_block``); the device keeps every stream's
   path.
 
-The JAX follower's ``mesh=`` (stream sharding over chips) has no
-counterpart on one card yet, and its XLA ``MultiStreamFollower`` waits for
-the pure-torch online core.
+The JAX followers' ``mesh=`` (stream sharding over chips) has no
+counterpart on one card yet (ROADMAP Queue 1 item 9).
 """
 
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -34,7 +39,13 @@ import torch
 from real_time_audio_sync_tpu_torch.config import OTWParams
 from real_time_audio_sync_tpu_torch.features.chroma import torch_dtype
 from real_time_audio_sync_tpu_torch.models.fused_streaming import _DELTA_STACK, fold_delta_tail, iter_delta_rows
-from real_time_audio_sync_tpu_torch.models.online_core import ENGINE_OVERRIDES, OnlineConfig
+from real_time_audio_sync_tpu_torch.models.online_core import (
+    ENGINE_OVERRIDES,
+    OnlineConfig,
+    _columns,
+    _insert_body,
+    init_state,
+)
 from real_time_audio_sync_tpu_torch.ops import otw_insert
 from real_time_audio_sync_tpu_torch.ops.otw_insert import N_STATUS, S_PLEN
 from real_time_audio_sync_tpu_torch.parallel.polling import BatchedStatusPolling
@@ -130,6 +141,69 @@ class DeltaPathDrain:
         self._host_keys = [np.repeat(np.arange(self.b), counts)]  # keep the merged chunk
         self._host_x, self._host_y = [pts[:, 0].copy()], [pts[:, 1].copy()]
         return np.split(pts, np.cumsum(counts)[:-1])
+
+
+class MultiStreamFollower:
+    """Follows ``B`` live streams concurrently with one batched insert step
+    per hop (the JAX package's ``parallel/serving.py:70-155``).
+
+    ``refs``: one (F, N_b) reference a stream (arrays or tensors), each
+    zero-padded to the longest; each stream's true length drives its stop
+    and its live capacity 2·N_b.  :meth:`insert` takes one column per
+    stream (B, F); ``active`` masks streams with no new frame this hop
+    (or feed NaNs), and a stopped stream stays frozen.  The step runs on
+    ``device`` (``"cuda"`` unless the caller asks for ``"cpu"``); every
+    stream's state is a dense (2·N_max, N_max) accumulator there.  The
+    positional parameters are the JAX follower's; ``mesh`` must be None."""
+
+    def __init__(self, refs: Sequence, params, dtype=np.float32, sentinel: float = 1e10, run_count_init: int = 1,
+                 monotone_path: bool = False, euclidean: bool = False, mesh=None, *, device="cuda"):
+        if mesh is not None:
+            raise NotImplementedError("mesh=: stream sharding over several cards is not ported yet "
+                                      "(ROADMAP Queue 1 item 9)")
+        self.mesh = None
+        p = OTWParams.from_any(params)
+        self.cfg = OnlineConfig(c=p.c, max_run_count=p.max_run_count, sentinel=sentinel,
+                                run_count_init=run_count_init, monotone_path=monotone_path, euclidean=euclidean)
+        self.dtype = np.dtype(dtype)
+        self.device = torch.device(device)
+        self._tdtype = torch_dtype(self.dtype)
+        refs = [_columns(r, self._tdtype, self.device) for r in refs]
+        self.b = len(refs)
+        f = refs[0].shape[0]
+        n_max = max(r.shape[1] for r in refs)
+        if min(r.shape[1] for r in refs) < self.cfg.c:
+            raise ValueError("every reference must be at least one band wide")
+        self.ref_lens = np.asarray([r.shape[1] for r in refs], np.int32)
+        self.refs = torch.zeros((self.b, f, n_max), dtype=self._tdtype, device=self.device)
+        for i, r in enumerate(refs):
+            self.refs[i, :, : r.shape[1]] = r
+        self._ref_lens_dev = torch.as_tensor(self.ref_lens, dtype=torch.int64).to(self.device)
+        self.states = init_state(self.refs, self.cfg, self._tdtype)
+
+    def insert(self, cols, active: Optional[np.ndarray] = None) -> np.ndarray:
+        """Insert one column per stream (B, F).  Returns the per-stream
+        stopped flags (a stream stops when its true reference is
+        exhausted); reading them waits for the card."""
+        cols = _columns(cols, self._tdtype, self.device)
+        if cols.shape[0] != self.b:
+            raise ValueError(f"expected {self.b} stream columns, got {cols.shape[0]}")
+        act = None if active is None else _columns(np.asarray(active, bool), torch.bool, self.device)
+        self.states = _insert_body(self.states, cols, self.refs, self.cfg, ref_len=self._ref_lens_dev,
+                                   live_cap=2 * self._ref_lens_dev, active=act)
+        return self.stopped
+
+    @property
+    def stopped(self) -> np.ndarray:
+        return self.states.stopped.cpu().numpy()
+
+    def paths(self) -> List[np.ndarray]:
+        lens = self.states.path_len.cpu().numpy()
+        path = self.states.path.cpu().numpy().astype(np.int32)
+        return [path[i, : lens[i]] for i in range(self.b)]
+
+    def pointers(self) -> Tuple[np.ndarray, np.ndarray]:
+        return self.states.t.cpu().numpy().astype(np.int32), self.states.j.cpu().numpy().astype(np.int32)
 
 
 class FusedMultiStreamFollower(DeltaPathDrain, BatchedStatusPolling):

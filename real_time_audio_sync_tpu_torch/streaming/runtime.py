@@ -65,15 +65,21 @@ class ScoreFollower:
     mirrors the 'r' key toggle (on stop a field log in the reference's
     exact format is written, livenote_live.py:150-154).
 
-    The positional parameters are the JAX package's, in its order.
-    ``fused=True`` runs the fused K-insert engine on ``device``: chroma and
-    alignment both run there, and the score position comes from the polled
-    status vector, never from a device synchronization.  The engine picks
-    its layout as the JAX package's does: a reference of
-    ``_LONG_REF_THRESHOLD`` frames or more (about 9.3 minutes) takes the
-    long-reference delta layout.  ``dtype`` is the reference chroma's
-    (the kernel is float32); ``fused_interpret`` is accepted and ignored,
-    since the device decides where the kernel runs.
+    The positional parameters are the JAX package's, in its order; chroma
+    and alignment both run on ``device``.  ``fused=True`` runs the fused
+    K-insert engine (float32; ``dtype`` is then the reference chroma's):
+    it picks its layout as the JAX package's does, a reference of
+    ``_LONG_REF_THRESHOLD`` frames or more (about 9.3 minutes) taking the
+    long-reference delta layout.  ``fused=False`` runs the tensor engine of
+    ``engine`` (:class:`OnlineTimeWarping`, :class:`LiveNote` or
+    :class:`LiveNoteV2`) in ``dtype``, in one of three modes: synchronous
+    inserts, one a hop (the default), ``use_blocks`` (a hop's columns in
+    one ``insert_block``) or ``pipelined`` (``insert_block_nowait``, never
+    waiting for the card).  In the pipelined and fused modes the score
+    position comes from the polled status vector; in the synchronous ones
+    from the status each insert reads back (the engine's ``last_point``,
+    which is ``path[-1]``).  ``fused_interpret`` is accepted and ignored,
+    since the device decides where a kernel runs.
     """
 
     def __init__(
@@ -91,16 +97,11 @@ class ScoreFollower:
         device="cuda",
     ):
         from real_time_audio_sync_tpu_torch.eval.corpus import DEFAULT_PARAMS
-        from real_time_audio_sync_tpu_torch.features.chroma import wav_to_chroma
-        from real_time_audio_sync_tpu_torch.models.fused_streaming import FusedStreamingEngine
+        from real_time_audio_sync_tpu_torch.features.chroma import torch_dtype, wav_to_chroma
+        from real_time_audio_sync_tpu_torch.models import FusedStreamingEngine, LiveNote, LiveNoteV2, OnlineTimeWarping
         from real_time_audio_sync_tpu_torch.models.online_core import ENGINE_OVERRIDES
 
         del fused_interpret  # the tensors' device decides
-        if not fused or use_blocks or pipelined:
-            raise NotImplementedError(
-                f"ScoreFollower(fused={fused}, use_blocks={use_blocks}, pipelined={pipelined}): the "
-                "XLA-engine modes (sync, use_blocks, pipelined) are not ported yet: ROADMAP.md "
-                "Queue 1, item 1")
         if engine not in ("otw", "livenote", "livenote_v2"):
             # the follower feeds plain chroma; the diff-feature engine
             # (livenote_v2_diff) belongs to the corpus harness, not the live app
@@ -109,10 +110,20 @@ class ScoreFollower:
         self.engine_name = engine
         self.params = dict(params or DEFAULT_PARAMS)
         self.device = torch.device(device)
+        self.use_blocks = use_blocks
+        # pipelined: issue inserts without waiting for the card and poll the
+        # compact status vector instead of reading the path
+        self.pipelined = pipelined or fused
+        self.fused = fused
 
-        ref_seq = wav_to_chroma(ref_wav, dtype, device=self.device)
-        self.engine = FusedStreamingEngine(
-            ref_seq, self.params, cfg_overrides=ENGINE_OVERRIDES[engine], device=self.device, long_ref=None)
+        ref_seq = wav_to_chroma(ref_wav, torch_dtype(dtype), device=self.device)
+        if fused:
+            self.engine = FusedStreamingEngine(
+                ref_seq, self.params, cfg_overrides=ENGINE_OVERRIDES[engine], device=self.device, long_ref=None)
+        else:
+            cls = {"otw": OnlineTimeWarping, "livenote": LiveNote, "livenote_v2": LiveNoteV2}[engine]
+            self.engine = cls(ref_seq, self.params, dtype=dtype, device=self.device)
+        self._frame_dtype = torch_dtype(self.engine.dtype)
 
         csv_path = ref_wav[:-4] + ".csv"
         self.ground_truth = GroundTruth.from_csv(csv_path) if os.path.exists(csv_path) else None
@@ -134,7 +145,7 @@ class ScoreFollower:
     def stop(self) -> Optional[str]:
         """Stop following; write the path log if a log_dir was configured."""
         self.recording = False
-        if self.engine.flush() == "stop":
+        if self.pipelined and self.engine.flush() == "stop":
             self.stopped = True
         if self.log_dir:
             os.makedirs(self.log_dir, exist_ok=True)
@@ -170,27 +181,52 @@ class ScoreFollower:
     def _process(self, windows: List[np.ndarray]) -> List[FollowEvent]:
         from real_time_audio_sync_tpu_torch.features.chroma import chroma_frames
 
-        frames = torch.from_numpy(np.stack(windows)).to(device=self.device, dtype=torch.float32)
+        frames = torch.from_numpy(np.stack(windows)).to(device=self.device, dtype=self._frame_dtype)
         cols = chroma_frames(frames)  # (12, T) on the follower's device
-        # columns go one at a time to the adaptive feed: dispatched at once
-        # while the pipeline has room, coalesced only under saturation; the
-        # follow event reports the newest completed status (== path[-1])
-        self.latency.start()
-        status = None
-        for k in range(cols.shape[1]):
-            status = self.engine.feed(cols[:, k])
+        events: List[FollowEvent] = []
+        if self.pipelined:
+            # issue without waiting; the follow event reports the newest
+            # completed status (== path[-1]).  The fused engine takes
+            # columns one at a time (dispatched at once while the pipeline
+            # has room, coalesced only under saturation)
+            self.latency.start()
+            if self.fused:
+                status = None
+                for k in range(cols.shape[1]):
+                    status = self.engine.feed(cols[:, k])
+                    if status == "stop":
+                        break
+            else:
+                status = self.engine.insert_block_nowait(cols)
+            self.latency.stop()
+            if status != "stop":
+                status = self.engine.poll()  # non-blocking opportunistic read
             if status == "stop":
-                break
-        self.latency.stop()
-        if status != "stop":
-            status = self.engine.poll()  # non-blocking opportunistic read
-        if status == "stop":
-            self.stopped = True
-        return [self._event_from_status()]
+                self.stopped = True
+            events.append(self._event_from_status())
+        elif self.use_blocks:
+            self.latency.start()
+            status = self.engine.insert_block(cols)
+            self.latency.stop()
+            if status == "stop":
+                self.stopped = True
+            events.append(self._event_from_status())
+        else:
+            for k in range(cols.shape[1]):
+                self.latency.start()
+                status = self.engine.insert(cols[:, k])
+                self.latency.stop()
+                if status == "stop":
+                    self.stopped = True
+                    events.append(self._event_from_status())
+                    break
+                events.append(self._event_from_status())
+        return events
 
     def _event_from_status(self) -> FollowEvent:
-        """Follow event from the engine's last polled status vector — no
-        device synchronization."""
+        """Follow event from the engine's last status read (``last_point``
+        == ``path[-1]``): the polled one in the pipelined mode, never a
+        device synchronization; the one each synchronous insert read."""
         lp = self.engine.last_point
         if lp is None or lp[0] == 0:
             return FollowEvent(0, 0, None, None, 0.0, self.stopped)

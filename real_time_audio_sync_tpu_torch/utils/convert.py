@@ -17,8 +17,13 @@ functions, into the port's ``MultiOTWState`` layout and back.  The
 window (rows on 128 lanes), 16 scalars and host path against the port's
 whole live history (n_cap, F), scalars and host path; the
 ``multi_fused_wtw_*`` functions carry a ``FusedMultiStreamWTW``'s stream by
-stream over them, each stream on its own reference length.  The reference
-features are not state (each engine builds them from the same chroma).
+stream over them, each stream on its own reference length.  The
+``online_state_*`` functions carry the online tensor engine's state
+(``models/online_core.OnlineState``: the JAX engine's 14 fields, the
+dense accumulator among them) and the ``multi_online_state_*`` functions a
+``MultiStreamFollower``'s, whose fields carry a leading stream axis in
+both packages.  The reference features are not state (each engine builds
+them from the same chroma).
 """
 
 from __future__ import annotations
@@ -250,3 +255,51 @@ def multi_fused_wtw_state_to_jax(live, scalars, host_paths, *, w: int, hop_frame
     per = [fused_wtw_state_to_jax(live[b], scalars[b], host_paths[b], w=w, hop_frames=hop_frames, k_block=k_block)
            for b in range(live.shape[0])]
     return np.stack([p[0] for p in per]), np.stack([p[1] for p in per])[:, None], [p[2] for p in per]
+
+
+# the online engine's fields in the JAX OnlineState's order (online_core.py:328-345)
+_ONLINE_FIELDS = ("live", "acc", "t", "j", "direction", "previous", "run_count", "path", "path_len", "last_x",
+                  "last_y", "first", "stopped", "overflow")
+_ONLINE_FLAGS = ("first", "stopped", "overflow")
+
+
+def multi_online_state_from_jax(fields):
+    """A JAX ``MultiStreamFollower``'s ``states`` (its OnlineState, or the
+    14 arrays in its field order, each with a leading stream axis B) → the
+    port's :class:`~..models.online_core.OnlineState`, CPU tensors: the
+    feature buffer and accumulator in their dtype, the flags bool, the
+    pointers and path int64 (move it to the engine's device with
+    ``OnlineState(*(x.to(device) for x in state))``)."""
+    from real_time_audio_sync_tpu_torch.models.online_core import OnlineState
+
+    out = []
+    for name, a in zip(_ONLINE_FIELDS, fields):
+        a = np.asarray(a)
+        dtype = a.dtype if name in ("live", "acc") else (bool if name in _ONLINE_FLAGS else np.int64)
+        out.append(torch.from_numpy(np.array(a, dtype=dtype)))
+    return OnlineState(*out)
+
+
+def multi_online_state_to_jax(state):
+    """The port's batched online state → the JAX layout's 14 numpy arrays
+    (leading stream axis B; pointers and path int32, flags bool), in the
+    JAX OnlineState's field order: ``jax OnlineState(*arrays)`` rebuilds
+    it."""
+    out = []
+    for name, x in zip(_ONLINE_FIELDS, state):
+        a = x.detach().cpu().numpy()
+        out.append(a if name in ("live", "acc") else a.astype(bool if name in _ONLINE_FLAGS else np.int32))
+    return tuple(out)
+
+
+def online_state_from_jax(fields):
+    """One JAX engine's ``state`` (``BandedOnlineEngine.state``, or its 14
+    arrays) → the port's OnlineState with B = 1, CPU tensors; a port engine
+    given it (on its device) continues to the JAX engine's path."""
+    return multi_online_state_from_jax([np.asarray(a)[None] for a in fields])
+
+
+def online_state_to_jax(state):
+    """The port's B = 1 online state → one JAX engine's 14 numpy arrays,
+    the inverse of :func:`online_state_from_jax`."""
+    return tuple(a[0] for a in multi_online_state_to_jax(state))

@@ -1,7 +1,8 @@
 """The port's pair and corpus runners (``eval/corpus.py``) and their CLI
 (``eval/__main__.py``) on the CPU — ``engine="dtw"`` and the online
 engines' ``mode="fused"`` — against the JAX package's, on synthetic
-``CASES`` pairs rendered from their seeds.
+``CASES`` pairs rendered from their seeds.  The online engines' insert
+mode, the runners' default, is held in ``test_torch_online_serving.py``.
 
 Each package on its own float32 frontend: the two chromas of a recording
 differ by float32 rounding, and the synthetic pieces hold each chord for a
@@ -117,18 +118,23 @@ def test_align_pair_argument_checks_and_unported_engines(cases):
         tcorpus.align_pair(ref, live, "dtw", mode="fused", device="cpu")
     with pytest.raises(ValueError, match="float32"):
         tcorpus.align_pair(ref, live, "otw", mode="fused", dtype=np.float64, device="cpu")
-    for engine, mode, item in (("otw", "insert", "item 1"), ("livenote_v2_diff", "insert", "item 1"),
-                               ("wtw", "insert", "item 7c")):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue 1, {item}"):
-            tcorpus.align_pair(ref, live, engine, mode=mode, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 1"):  # dtw runs, then otw raises
+    # WTW's insert mode runs AsyncWTW, not ported yet (item 7c)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1, item 7c"):
+        tcorpus.align_pair(ref, live, "wtw", mode="insert", device="cpu")
+    with pytest.raises(NotImplementedError, match="item 7c"):  # the ported engines run, then wtw raises
         tcorpus.run_simple(ref, live, tcorpus.ENGINES, verbose=False, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 1"):
-        tcorpus.CorpusRunner(cases, "livenote_v2_diff", device="cpu").evaluate(verbose=False)
-    # the defaults run the ported engine
+    # the online engines' insert mode runs: in float64, each package on its
+    # own frontend, the JAX package's results
+    for engine in ("otw", "livenote_v2_diff"):
+        _same_result(tcorpus.align_pair(ref, live, engine, dtype=np.float64, device="cpu"),
+                     jcorpus.align_pair(ref, live, engine, dtype=np.float64))
+    report = tcorpus.CorpusRunner(cases, "livenote_v2_diff", device="cpu").evaluate(verbose=False)
+    assert [r.engine for r in report.results] == ["livenote_v2_diff"] * len(PAIRS)
+    # the defaults: every engine whose insert mode is ported; livenote_v2_diff for a pair
     got = tcorpus.run_simple(ref, live, verbose=False, device="cpu")
-    assert list(got) == ["dtw"]
-    _same_result(got["dtw"], tcorpus.align_pair(ref, live, device="cpu"))
+    assert list(got) == list(tcorpus.PORTED_ENGINES) == ["dtw", *ONLINE]
+    _same_result(got["livenote_v2_diff"], tcorpus.align_pair(ref, live, device="cpu"))
+    _same_result(got["dtw"], tcorpus.align_pair(ref, live, "dtw", device="cpu"))
     # the online engines' fused mode is ported, and WTW's fused mode
     fused = tcorpus.align_pair(ref, live, "livenote_v2", mode="fused", device="cpu")
     assert fused.engine == "livenote_v2" and tuple(fused.path[0]) == (0, 0) and fused.score.count > 20
@@ -260,9 +266,12 @@ def test_cli_matches_jax(two_piece_corpus, tmp_path, capsys):
         assert jmain(args) == 0
         want = capsys.readouterr().out
         assert got.splitlines() == want.splitlines() and got.strip(), args
-        if "--engine" in args:  # dtw is the port's default engine
-            assert tmain([a for a in args if a not in ("--engine", "dtw")] + ["--device", "cpu"]) == 0
-            assert capsys.readouterr().out == got
+    # without --engine a sweep streams livenote_v2_diff, the JAX CLI's default
+    args = ["--corpus", two_piece_corpus, "--dtype", "float64"]
+    assert tmain(args + ["--device", "cpu"]) == 0
+    got = capsys.readouterr().out
+    assert jmain(args) == 0
+    assert got.splitlines() == capsys.readouterr().out.splitlines() and "[livenote_v2_diff]" in got
     with pytest.raises(NotImplementedError, match="item 7"):
         tmain(["--ref", ref, "--live", live, "--engine", "wtw", "--device", "cpu"])
     # an online engine's fused sweep: the runner's own report

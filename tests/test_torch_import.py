@@ -92,6 +92,10 @@ ENTRY_POINTS = [
     ("eval.corpus", "align_pair"),
     ("eval.corpus", "CorpusRunner"),
     ("eval.corpus", "run_simple"),
+    ("models.otw", "OnlineTimeWarping"),
+    ("models.livenote", "LiveNote"),
+    ("models.livenote_v2", "LiveNoteV2"),
+    ("parallel.serving", "MultiStreamFollower"),
 ]
 
 
@@ -165,6 +169,16 @@ def _both(name):
         from real_time_audio_sync_tpu_torch.models.fused_wtw import FusedWTW as T
 
         return J(audio, WP, interpret=True), T(audio, WP, interpret=True, device="cpu")
+    if name in ("OnlineTimeWarping", "LiveNote", "LiveNoteV2"):
+        from real_time_audio_sync_tpu import models as J
+        from real_time_audio_sync_tpu_torch import models as T
+
+        return getattr(J, name)(feats, band), getattr(T, name)(feats, band, device="cpu")
+    if name == "MultiStreamFollower":
+        from real_time_audio_sync_tpu.parallel.serving import MultiStreamFollower as J
+        from real_time_audio_sync_tpu_torch.parallel import MultiStreamFollower as T
+
+        return J([feats, feats[:, :30]], band), T([feats, feats[:, :30]], band, device="cpu")
     if name == "FusedMultiStreamWTW":
         from real_time_audio_sync_tpu.parallel import FusedMultiStreamWTW as J
         from real_time_audio_sync_tpu_torch.parallel import FusedMultiStreamWTW as T
@@ -178,7 +192,8 @@ def _both(name):
 
 
 @pytest.mark.parametrize("name", ["FusedStreamingEngine", "FusedMultiStreamFollower", "FusedWTW", "WTW",
-                                  "FusedMultiStreamWTW"])
+                                  "FusedMultiStreamWTW", "OnlineTimeWarping", "LiveNote", "LiveNoteV2",
+                                  "MultiStreamFollower"])
 def test_public_names_match_the_jax_objects(name):
     """The public ``dir()`` names (which hold the public ``vars()``) of an
     object built in both packages differ only by ``NAME_DIFFERENCES``; the

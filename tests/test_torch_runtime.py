@@ -122,17 +122,35 @@ def test_follower_matches_jax_follower(steady, engine, monkeypatch, tmp_path):
 
 
 def test_follower_contract(steady):
-    ref, _, _ = steady
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ScoreFollower(ref, "otw", PARAMS, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 1"):
-        ScoreFollower(ref, "otw", PARAMS, None, np.float32, True, False, True, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 1"):
-        ScoreFollower(ref, "otw", PARAMS, None, np.float32, False, True, True, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 1"):
-        ScoreFollower(ref, "otw", PARAMS, fused=False, device="cpu")
+    """Every mode of the JAX follower runs: the tensor engine in the sync
+    (default), use_blocks and pipelined modes, and the fused engine, which
+    implies pipelined, with either flag, as in JAX.  Each non-fused mode,
+    in float64, follows the first 40 hops to the JAX follower's path in the
+    same mode, each package on its own frontend."""
+    from real_time_audio_sync_tpu_torch.models import FusedStreamingEngine, OnlineTimeWarping
+
+    ref, _, buffers = steady
+    modes = [  # (positional args after params, fused, pipelined, engine class)
+        ((), False, False, OnlineTimeWarping),
+        ((None, np.float64), False, False, OnlineTimeWarping),
+        ((None, np.float64, True), False, False, OnlineTimeWarping),
+        ((None, np.float64, False, True), False, True, OnlineTimeWarping),
+        ((None, np.float32, True, False, True), True, True, FusedStreamingEngine),
+        ((None, np.float32, False, True, True), True, True, FusedStreamingEngine),
+    ]
+    for args, fused, pipelined, cls in modes:
+        port = ScoreFollower(ref, "otw", PARAMS, *args, device="cpu")
+        assert isinstance(port.engine, cls) and (port.fused, port.pipelined) == (fused, pipelined)
+        _follow(port, buffers[:40])
+        assert len(port.path) > 0
+        if args and not fused:
+            want = JaxFollower(ref, "otw", PARAMS, *args)
+            _follow(want, buffers[:40])
+            assert port.path == [tuple(p) for p in want.path], args
     with pytest.raises(ValueError, match="unknown follower engine"):
         ScoreFollower(ref, "livenote_v2_diff", PARAMS, fused=True, device="cpu")
+    with pytest.raises(ValueError, match="unknown follower engine"):
+        ScoreFollower(ref, "livenote_v2_diff", PARAMS, device="cpu")
     # the card unless the caller asks for the CPU
     assert inspect.signature(ScoreFollower).parameters["device"].default == "cuda"
 
