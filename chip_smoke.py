@@ -214,11 +214,44 @@ Phases, each raising on failure (the process then exits non-zero):
    reference's streams equal their solo engines; device bytes and the
    wall a hop.
 
+14. the device-resident WTW engine (``AsyncWTW``, ``MultiStreamWTW``) and
+   kernels #7 and #8 over a batch of windows (one launch of each, the
+   batch on the grid) —
+   (a) the batched DP and backtrack at (B, w) in ((1, 20), (18, 100),
+   (64, 200), (18, 128)) float32, (18, 100) float64 and a batch at w = 200
+   of more strips than the card holds at once (a window of ties and one
+   with infinite cells in each): acc, back, points and length EQUAL B solo
+   launches and the plain versions; one batched launch's device time
+   (profiler) and CUDA-event time beside B solo launches';
+   (b) ``WTWFollower(engine="wtw_async")`` at the live app's w = 100, hop
+   50, k_block 8 on phase 4's pair, fed 2048-sample buffers, its insert
+   loop under ``torch.cuda.set_sync_debug_mode("error")`` (a host read of
+   a device value fails the phase): the path equals
+   ``WTWFollower(engine="wtw_fused")``'s (kernel #9) and the host
+   ``WTW``'s on the card; RTF, wall and host time a hop, windows, the
+   batched launches (counters), and from a traced slice
+   ``cudaLaunchKernel`` a hop, the kernels' device ms a window and the
+   idle share;
+   (c) ``AsyncWTW`` at w = 200, hop 100 (above the fused kernel): the path
+   equals the host ``WTW``'s; a float64 ``AsyncWTW`` on the card equals its
+   CPU run over the first ``ASYNC_F64_HOPS`` hops (host chroma columns,
+   the card's reference rows);
+   (d) ``align_pair(engine="wtw", mode="insert")`` at w = 20 on the piece's
+   three pairs == ``mode="oracle"`` == ``mode="fused"``;
+   (e) ``CorpusRunner(engine="wtw", mode="fused")`` at w = 200 over the
+   full-scale corpus's 18 pairs, one ``MultiStreamWTW`` (B = 18, each
+   stream on its own reference): each stream equals its solo ``AsyncWTW``;
+   at w = 20 ``MultiStreamWTW`` equals ``FusedMultiStreamWTW`` stream by
+   stream; ms and ``cudaLaunchKernel`` a dispatch, device bytes a stream.
+   (d) and (e) run each recording's first ``ASYNC_CUT_HOPS`` hops (a cut
+   in depth, to fit the phase's 60 s).
+
 The builds run in parallel (one ``nvcc`` per source).  Then each phase's
 seconds, one JSON line of per-kernel results, and last ``{"ok": true,
 "device": {...}}``.  ``--band-times [TREE]`` only times the two band
-kernels, the two wavefront kernels and the WTW kernel (:func:`band_times`),
-for an A/B of two trees in one call.
+kernels, the two wavefront kernels (the DP also over a batch of windows)
+and the WTW kernel (:func:`band_times`), for an A/B of two trees in one
+call.
 Without a CUDA device it exits non-zero before printing any result.
 """
 
@@ -261,6 +294,11 @@ KERNELS = {
     # kernel #10: kernel #9's CUDA kernel over a grid of B streams
     "wtw_multi_insert_block": ("wtw_insert", f"{CSRC}/wtw_insert.cu",
                                "real_time_audio_sync_tpu/ops/pallas_wtw.py:408"),
+    # kernels #7 and #8 over a batch of windows, one launch each (AsyncWTW, MultiStreamWTW)
+    "wavefront_dp_batched": ("wavefront", f"{CSRC}/wavefront.cu",
+                             "real_time_audio_sync_tpu/ops/pallas_wavefront.py:111"),
+    "wavefront_backtrack_batched": ("wavefront", f"{CSRC}/wavefront.cu",
+                                    "real_time_audio_sync_tpu/ops/pallas_wavefront.py:181"),
 }
 # the card's published peaks (H100 SXM data sheet, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
@@ -389,6 +427,24 @@ ONLINE_MODE_HOPS = 200
 ONLINE_TRACE_WARMUP, ONLINE_TRACE_HOPS = 2, 4
 ONLINE_SET_LIVE_FRAMES = 480
 ONLINE_MULTI_HOPS = 200
+# phase 14: the batched wavefront kernels' (B, w) in float32 (a window of
+# the harness, the live app's at the sweep's 18 streams, a wide window at
+# serving batch, the fused kernel's widest at 18) and in float64; the
+# AsyncWTW cells above the fused kernel (w = 200, hop 100); the hops of the
+# float64 card-against-CPU prefix (a cut); the follower's warm-up and
+# traced hops; the chunk rounds of the sweep engine's traced slice
+ASYNC_BATCHES = ((1, 20), (18, 100), (64, 200), (18, 128))
+ASYNC_BATCH_F64 = (18, 100)
+ASYNC_WIDE = {"fft_len": 4096, "hop_size": 2048, "dtw_win_size": 4096 * 100, "dtw_hop_size": 2048 * 100}
+ASYNC_F64_HOPS = 400
+ASYNC_TRACE_WARMUP, ASYNC_TRACE_BUFFERS = 16, 800
+ASYNC_SWEEP_TRACE_CHUNKS = 400
+# phase 14 (d) and (e), cut in depth to fit the phase's 60 s: the hops of
+# each recording the pairs and the sweep run (uncut, (d) and (e) took 18.4
+# s and 30.6 s of a 95 s phase; at 1,000 hops the phase took 58.5 s)
+ASYNC_CUT_HOPS = 800
+# --band-times: the batched DP's (B, w), float32
+WAVEFRONT_BATCH_TIMED = ((18, 100), (64, 200))
 
 
 def log(msg: str) -> None:
@@ -1638,7 +1694,9 @@ def wavefront_times(device) -> dict:
     (:func:`queued_ms` over 20 launches after two of warm-up, each
     launch's wrapper included: the DP's zeroed workspace, the backtrack's
     outputs): the DP and the backtrack at each shape of WAVEFRONT_TIMED in
-    float32, on a uniform random cost, and the DP at the first in float64."""
+    float32, on a uniform random cost, and the DP at the first in float64;
+    then, where the package's wrappers take a batch, the DP over a batch
+    of windows at each (B, w) of WAVEFRONT_BATCH_TIMED (WTW's spec)."""
     import torch
 
     from real_time_audio_sync_tpu_torch.ops import wavefront
@@ -1662,6 +1720,12 @@ def wavefront_times(device) -> dict:
                 name = f"backtrack {shape[0]}x{shape[1]}"
                 out[name] = timed(lambda: wavefront.backtrack(back, wavefront.DTW_SPEC))
                 log(f"[wavefront {name}]: {out[name]:.4f} ms/launch (20 launches queued; path {length} points)")
+    if hasattr(wavefront, "dp_batched_launches"):  # a package whose wrappers take a batch of windows
+        for b, w in WAVEFRONT_BATCH_TIMED:
+            cost = torch.rand((b, w, w), generator=gen, device=device)
+            name = f"dp batch {b}x{w}x{w} float32"
+            out[name] = timed(lambda: wavefront.wavefront_dp(cost, wavefront.WTW_SPEC))
+            log(f"[wavefront {name}]: {out[name]:.4f} ms/launch (20 launches queued, the batch in one launch)")
     return out
 
 
@@ -3522,6 +3586,369 @@ def phase_online(device, root: str, card: str) -> None:
     log(f"phase 13: {time.perf_counter() - t_phase:.1f} s in all; {card}")
 
 
+
+def batched_wavefront_bounds(b: int, w: int, itemsize: int, path_points: int):
+    """(dp bound ms, by), (backtrack bound ms, by) of one batched launch over
+    b (w, w) windows: the DP reads each cost once and writes acc and back
+    (3 multiplies, 3 adds, 2 compares a cell); the backtrack reads the
+    codes on the paths (``path_points`` of them in all) and writes the
+    points and lengths (4 operations a step)."""
+    out = []
+    for bytes_, ops in ((b * w * w * (2 * itemsize + 1), b * w * w * 8),
+                        (path_points + b * (2 * w - 1) * 8 + 4 * b, path_points * 4)):
+        t_bytes, t_ops = bytes_ / HBM_BYTES_PER_S * 1e3, ops / FP32_FLOPS * 1e3
+        out.append((t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations"))
+    return out
+
+
+def phase_async_batched(device, card: str):
+    """Phase 14 (a): the DP and backtrack kernels over a batch of windows
+    against B solo launches and the plain versions (tolerance 0), and the
+    device time of one batched launch against B solo ones.  Returns the
+    kernels-line numbers of both at (18, 100) float32 (launches filled in
+    by the caller)."""
+    import torch
+
+    from real_time_audio_sync_tpu_torch.ops import wavefront as wf
+
+    t0 = time.perf_counter()
+    spec = wf.WTW_SPEC
+    gen = torch.Generator(device=device).manual_seed(14)
+    strips, resident = wavefront_strips(200, False, device)
+    many = resident // strips + 8  # B x strips above what the card holds at once
+    cases = [(b, w, torch.float32) for b, w in ASYNC_BATCHES] + [
+        (*ASYNC_BATCH_F64, torch.float64), (many, 200, torch.float32)]
+    worst = {"dp": 0.0, "bt": 0.0}
+    rows = {}
+    for b, w, dt in cases:
+        what = f"phase 14 (a) B={b} w={w} {str(dt)[6:]}"
+        cost = torch.rand((b, w, w), generator=gen, device=device, dtype=dt)
+        cost[0] = 1.0  # a window of ties everywhere
+        if b > 1:
+            cost[1, 3:7, 2:9] = float("inf")  # and one with infinite cells
+        acc, back = wf.wavefront_dp(cost, spec)
+        pts, ln = wf.backtrack(back, spec)
+        acc_p, back_p = wf.wavefront_dp_reference(cost, spec)
+        pts_p, ln_p = wf.backtrack_reference(back, spec)
+        singles = [cost[i].contiguous() for i in range(b)]
+        solo = [wf.wavefront_dp(c, spec) for c in singles]
+        solo_bt = [wf.backtrack(s[1], spec) for s in solo]
+        torch.cuda.synchronize()
+        for name, x, y in (("acc", acc, acc_p), ("back", back, back_p), ("points", pts, pts_p),
+                           ("length", ln, ln_p)):
+            if not torch.equal(x, y):
+                raise AssertionError(f"{what}: batched kernel and plain disagree on {name}")
+        for i in range(b):
+            if not (torch.equal(acc[i], solo[i][0]) and torch.equal(back[i], solo[i][1])
+                    and torch.equal(pts[i], solo_bt[i][0]) and torch.equal(ln[i], solo_bt[i][1])):
+                raise AssertionError(f"{what}: window {i} of the batch differs from its solo launch")
+        worst["dp"] = max(worst["dp"], max_abs_diff(acc, acc_p))
+        worst["bt"] = max(worst["bt"], max_abs_diff(pts, pts_p))
+        # one batched launch against b solo launches: CUDA events (back to
+        # back, wrappers included) and the profiler's device time
+        ev_dp = time_calls(lambda: wf.wavefront_dp(cost, spec), 10)
+        ev_dp_solo = time_calls(lambda: [wf.wavefront_dp(c, spec) for c in singles], 3, warmup=1)
+        ev_bt = time_calls(lambda: wf.backtrack(back, spec), 10)
+        ev_bt_solo = time_calls(lambda: [wf.backtrack(s[1], spec) for s in solo], 3, warmup=1)
+        dev_dp, _ = kernel_device_ms(lambda r: wf.wavefront_dp(cost, spec), 5, "wavefront_dp_kernel")
+        dev_bt, _ = kernel_device_ms(lambda r: wf.backtrack(back, spec), 5, "wavefront_backtrack_kernel")
+        solo_dp_us = kernel_launch_us(lambda r: wf.wavefront_dp(singles[r], spec), b, "wavefront_dp_kernel")
+        solo_bt_us = kernel_launch_us(lambda r: wf.backtrack(solo[r][1], spec), b, "wavefront_backtrack_kernel")
+        fmt = lambda x: "not measured" if x is None else f"{x:.4f} ms"  # noqa: E731
+        n_strips = b * -(-w // 64)
+        log(f"{what}: batched == {b} solo launches == plain (acc, back, points, length); {n_strips} strips "
+            f"({resident} resident at once); DP: one batched launch {fmt(dev_dp)} device (profiler), {ev_dp:.4f} ms "
+            f"(events) against {b} solo launches {sum(solo_dp_us) / 1e3:.4f} ms device ({len(solo_dp_us)} traced), "
+            f"{ev_dp_solo:.4f} ms (events); backtrack: {fmt(dev_bt)} / {ev_bt:.4f} ms against "
+            f"{sum(solo_bt_us) / 1e3:.4f} / {ev_bt_solo:.4f} ms")
+        if (b, w, dt) == (*ASYNC_BATCHES[1], torch.float32):
+            plain_dp = time_calls(lambda: wf.wavefront_dp_reference(cost, spec), 2, warmup=1)
+            plain_bt = time_calls(lambda: wf.backtrack_reference(back, spec), 2, warmup=1)
+            (b_dp, by_dp), (b_bt, by_bt) = batched_wavefront_bounds(b, w, 4, int(ln.sum()))
+            rows["wavefront_dp_batched"] = [None, 0.0, dev_dp, ev_dp, plain_dp, b_dp, by_dp,
+                                            {"batch": b, "w": w, "solo_ms": sum(solo_dp_us) / 1e3,
+                                             "solo_event_ms": ev_dp_solo}]
+            rows["wavefront_backtrack_batched"] = [None, 0.0, dev_bt, ev_bt, plain_bt, b_bt, by_bt,
+                                                   {"batch": b, "w": w, "solo_ms": sum(solo_bt_us) / 1e3,
+                                                    "solo_event_ms": ev_bt_solo}]
+            log(f"{what}: plain DP {plain_dp:.2f} ms, plain backtrack {plain_bt:.2f} ms (card tensors); bound DP "
+                f"{b_dp:.7f} ms by {by_dp}, backtrack {b_bt:.7f} ms by {by_bt}")
+    if many * strips <= resident:
+        raise AssertionError(f"phase 14 (a): B={many} x {strips} strips is not more than the card holds")
+    rows["wavefront_dp_batched"][1] = worst["dp"]
+    rows["wavefront_backtrack_batched"][1] = worst["bt"]
+    log(f"phase 14 (a) [{card}]: {len(cases)} batches equal; acc max |diff| {worst['dp']}, points max |diff| "
+        f"{worst['bt']}; {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
+def reset_batched_counts() -> None:
+    from real_time_audio_sync_tpu_torch.ops import wavefront
+
+    wavefront.dp_batched_launches = wavefront.backtrack_batched_launches = 0
+
+
+def batched_counts(what: str, windows: int):
+    """The batched wavefront kernels' counters, read after a main-path run:
+    raises unless both launched, once each a window slot (at least one
+    slot a window's stream, and never more slots than windows)."""
+    from real_time_audio_sync_tpu_torch.ops import wavefront
+
+    counts = (wavefront.dp_batched_launches, wavefront.backtrack_batched_launches)
+    if counts[0] == 0 or counts[0] != counts[1] or windows <= 0:
+        raise AssertionError(f"{what}: batched DP/backtrack launches {counts}, {windows} windows")
+    return counts[0]
+
+
+def async_trace(follower, buffers, label: str, hop: int):
+    """A profiler trace of a warm follower over ``buffers``: cudaLaunchKernel
+    a hop, the wavefront kernels' device ms a window, the device's idle
+    share of the wall."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    lp0 = follower.dtw.pointers[1]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for buf in buffers:
+            follower.receive_audio(buf)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    windows = (follower.dtw.pointers[1] - lp0) // hop
+    avgs = prof.key_averages()
+    for e in sorted(avgs, key=lambda e: e.self_cpu_time_total, reverse=True)[:8]:
+        log(f"{label}: host {e.self_cpu_time_total / 1e3:8.1f} ms  x{e.count:6d}  {e.key[:80]}")
+    calls = sum(e.count for e in avgs if e.key == "cudaLaunchKernel")
+    dev = sum(e.self_device_time_total for e in avgs)
+    dp = sum(e.self_device_time_total for e in avgs if "wavefront_dp_kernel" in e.key)
+    bt = sum(e.self_device_time_total for e in avgs if "wavefront_backtrack_kernel" in e.key)
+    per_win = (lambda us: f"{us / 1e3 / windows:.4f} ms" if windows else "not measured")  # noqa: E731
+    log(f"{label}: {len(buffers)} hops traced, {windows} windows: {calls / len(buffers):.1f} cudaLaunchKernel a "
+        f"hop; DP {per_win(dp)} and backtrack {per_win(bt)} device a window; device busy {dev / 1e6:.4f} s of "
+        f"{wall:.3f} s, idle {100 - 100 * dev / (wall * 1e6):.1f} %")
+    return {"launch_calls_a_hop": calls / len(buffers), "dp_ms_a_window": dp / 1e3 / windows if windows else None,
+            "backtrack_ms_a_window": bt / 1e3 / windows if windows else None,
+            "idle_pct": 100 - 100 * dev / (wall * 1e6)}
+
+
+def phase_async_follower(device, root: str, card: str):
+    """Phase 14 (b) and (c); returns the batched launches of their main
+    paths and (b)'s figures."""
+    import numpy as np
+    import torch
+
+    from real_time_audio_sync_tpu_torch.models import WTW, AsyncWTW
+    from real_time_audio_sync_tpu_torch.streaming.runtime import WTWFollower
+    from real_time_audio_sync_tpu_torch.utils.wavio import load_wav
+
+    t0 = time.perf_counter()
+    d = os.path.join(root, "sonata_allegro")
+    ref_wav, live_wav = (os.path.join(d, f"sonata_allegro_0{i}.wav") for i in (0, 1))
+    pcm, fs = load_wav(live_wav)
+    buffers = [pcm[s : s + 2048] for s in range(0, len(pcm), 2048)]
+    audio_s, hops = len(pcm) / fs, (len(pcm) - 4096) // 2048 + 1
+
+    # (b) the live app's follower on AsyncWTW, the insert loop under the sync check
+    follower = WTWFollower(ref_wav, live_wav, LIVE_APP_WTW, engine="wtw_async", device=device)
+    eng = follower.dtw
+    w, hop, k = eng._w, eng._hop_frames, eng.k_block
+    follower.start()
+    torch.cuda.synchronize()
+    reset_batched_counts()
+    t1 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")  # a host read of a device value in the loop raises
+    try:
+        for buf in buffers:
+            follower.receive_audio(buf)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    loop_s = time.perf_counter() - t1
+    follower.stop()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    windows = eng.pointers[1] // hop  # each window advances live_ptr by exactly hop_frames
+    follow_launches = batched_counts("phase 14 (b)", windows)
+    path = [tuple(p) for p in follower.path]
+    fused = WTWFollower(ref_wav, live_wav, LIVE_APP_WTW, engine="wtw_fused", device=device)
+    follow(fused, buffers)
+    host = WTW(ref_wav, LIVE_APP_WTW, device=device)
+    for buf in buffers:
+        if host.insert(buf) == "stop":
+            break
+    if not path or path != [tuple(p) for p in fused.path] or path != host.path:
+        raise AssertionError("phase 14 (b): the AsyncWTW follower's path differs from the fused follower's or "
+                             "the host WTW engine's")
+    if eng.pointers != fused.dtw.pointers:
+        raise AssertionError("phase 14 (b): AsyncWTW's pointers differ from FusedWTW's")
+    log(f"phase 14 (b) [{card}]: WTWFollower(engine='wtw_async', w={w}, hop={hop}, k_block={k}) on sonata_allegro "
+        f"_01 ({hops} hops, {audio_s:.1f} s) vs _00 ({eng.M} frames): wall {wall:.3f} s, real-time factor "
+        f"{audio_s / wall:.1f}, host {loop_s / hops * 1e6:.1f} us a hop (the insert loop, no synchronization: "
+        f"sync debug mode 'error'), {windows} windows, {follow_launches} batched DP and backtrack launches, "
+        f"{len(path)} points == WTWFollower(engine='wtw_fused') (kernel #9) == the host WTW engine on the card")
+    traced = WTWFollower(ref_wav, live_wav, LIVE_APP_WTW, engine="wtw_async", device=device)
+    traced.start()
+    for buf in buffers[:ASYNC_TRACE_WARMUP]:
+        traced.receive_audio(buf)
+    torch.cuda.synchronize()
+    figures = async_trace(traced, buffers[ASYNC_TRACE_WARMUP : ASYNC_TRACE_WARMUP + ASYNC_TRACE_BUFFERS],
+                          f"phase 14 (b) [trace, {card}]", hop)
+    traced.stop()
+    figures.update(rtf=audio_s / wall, host_us_a_hop=loop_s / hops * 1e6, windows=windows)
+    log(f"phase 14 (b): {time.perf_counter() - t0:.1f} s")
+
+    # (c) above the fused kernel: w = 200, hop 100
+    t2 = time.perf_counter()
+    wide = AsyncWTW(ref_wav, ASYNC_WIDE, device=device)
+    reset_batched_counts()
+    t3 = time.perf_counter()
+    for buf in buffers:
+        wide.insert(buf)
+    wide.flush()
+    wide_wall = time.perf_counter() - t3
+    wide_windows = wide.pointers[1] // wide._hop_frames
+    wide_launches = batched_counts("phase 14 (c)", wide_windows)
+    host = WTW(ref_wav, ASYNC_WIDE, device=device)
+    for buf in buffers:
+        if host.insert(buf) == "stop":
+            break
+    if not host.path or wide.path != host.path or wide.pointers[1:] != (host.live_ptr, host.ref_ptr):
+        raise AssertionError("phase 14 (c): AsyncWTW at w = 200 differs from the host WTW engine on the card")
+    log(f"phase 14 (c) [{card}]: AsyncWTW(w={wide._w}, hop={wide._hop_frames}) fed the same buffers: wall "
+        f"{wide_wall:.3f} s, real-time factor {audio_s / wide_wall:.1f}, {wide_windows} windows, {wide_launches} "
+        f"batched launches, {len(host.path)} points == the host WTW engine on the card")
+    # float64 on the card against the CPU on a prefix: the host frontend's
+    # columns (the same bits on both) and the card's reference rows
+    kw = {"dtype": np.float64, "transfer_dtype": "chroma"}
+    card64 = AsyncWTW(ref_wav, ASYNC_WIDE, device=device, **kw)
+    cpu64 = AsyncWTW(ref_wav, ASYNC_WIDE, device="cpu", **kw)
+    cpu64._stepper.ref.copy_(card64._stepper.ref.cpu())
+    for e in (card64, cpu64):
+        for buf in buffers[:ASYNC_F64_HOPS]:
+            e.insert(buf)
+        e.flush()
+    cp = card64.pointers[0]
+    if (not card64.path or card64.path != cpu64.path or card64.pointers != cpu64.pointers
+            or not np.array_equal(card64.chroma_live[:, :cp], cpu64.chroma_live[:, :cp])):
+        raise AssertionError("phase 14 (c): float64 AsyncWTW on the card differs from its CPU run")
+    log(f"phase 14 (c): float64 AsyncWTW on the card == the CPU run over the first {ASYNC_F64_HOPS} hops (a cut): "
+        f"{len(cpu64.path)} points, pointers {cpu64.pointers}, live chroma up to chroma_ptr; "
+        f"{time.perf_counter() - t2:.1f} s")
+    return follow_launches + wide_launches, figures
+
+
+def phase_async_corpus(device, root: str, card: str):
+    """Phase 14 (d) and (e); returns the batched launches of their main
+    paths and (e)'s figures."""
+    import numpy as np
+    import torch
+
+    from real_time_audio_sync_tpu_torch.eval import corpus, synthetic
+    from real_time_audio_sync_tpu_torch.parallel import FusedMultiStreamWTW, MultiStreamWTW, wtw_serving
+
+    # (d) the harness's insert mode at w = 20 on the piece's three pairs, each
+    # recording cut to its first ASYNC_CUT_HOPS hops
+    t0 = time.perf_counter()
+    d = os.path.join(root, "sonata_allegro")
+    cut_root = os.path.join(root, "async_cut")
+    for name in sorted(f for f in os.listdir(d) if f.endswith(".wav")):
+        cut_recording(os.path.join(d, name), ASYNC_CUT_HOPS, os.path.join(cut_root, "sonata_allegro"))
+    launches = 0
+    for ref_p, live_p in corpus.corpus_pairs(cut_root):
+        reset_batched_counts()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        got = corpus.align_pair(ref_p, live_p, "wtw", mode="insert", device=device)
+        torch.cuda.synchronize()
+        pair_wall = time.perf_counter() - t1
+        n = batched_counts("phase 14 (d)", len(got.path))
+        launches += n
+        for mode in ("oracle", "fused"):
+            if not np.array_equal(got.path, corpus.align_pair(ref_p, live_p, "wtw", mode=mode, device=device).path):
+                raise AssertionError(f"phase 14 (d): {os.path.basename(live_p)}: insert mode != mode={mode!r}")
+        log(f"phase 14 (d) [{card}]: {os.path.basename(ref_p)} vs {os.path.basename(live_p)}: align_pair(wtw, "
+            f"insert) wall {pair_wall:.3f} s, {n} batched launches, {len(got.path)} points == oracle == fused")
+    log(f"phase 14 (d): {time.perf_counter() - t0:.1f} s")
+
+    # (e) the 18-pair sweep at w = 200: one MultiStreamWTW; every recording
+    # of the full-scale corpus cut to its first ASYNC_CUT_HOPS hops
+    t2 = time.perf_counter()
+    sweep_root = os.path.join(root, "wtw_sweep_cut")
+    for piece in synthetic.FULL_PIECES:
+        src = os.path.join(root, piece)
+        for name in sorted(os.listdir(src)):
+            if name.endswith(".wav"):
+                cut_recording(os.path.join(src, name), ASYNC_CUT_HOPS, os.path.join(sweep_root, piece))
+    pairs = corpus.corpus_pairs(sweep_root)
+    dispatches = []
+    original = wtw_serving.MultiStreamWTW._dispatch
+
+    def counting(self, ks):
+        dispatches.append(int((ks > 0).sum()))
+        return original(self, ks)
+
+    corpus._FEAT_CACHE.clear()
+    wtw_serving.MultiStreamWTW._dispatch = counting
+    try:
+        torch.cuda.synchronize()
+        reset_batched_counts()
+        t3 = time.perf_counter()
+        report = corpus.CorpusRunner(sweep_root, "wtw", ASYNC_WIDE, mode="fused", device=device).evaluate(
+            verbose=False)
+        torch.cuda.synchronize()
+        sweep_wall = time.perf_counter() - t3
+    finally:
+        wtw_serving.MultiStreamWTW._dispatch = original
+    n = batched_counts("phase 14 (e)", len(dispatches))
+    launches += n
+    if len(report.results) != len(pairs) or not dispatches:
+        raise AssertionError(f"phase 14 (e): {len(report.results)} pairs, {len(dispatches)} dispatches")
+    for r in report.results:
+        solo = corpus.align_pair(r.ref_wav, r.live_wav, "wtw", ASYNC_WIDE, mode="fused", device=device)
+        if len(r.path) == 0 or not np.array_equal(r.path, solo.path):
+            raise AssertionError(f"phase 14 (e): {os.path.basename(r.live_wav)}: the sweep's path != solo AsyncWTW")
+    log(f"phase 14 (e) [{card}]: CorpusRunner(wtw, mode='fused', w=200, hop=100) over {len(pairs)} pairs (each "
+        f"recording's first {ASYNC_CUT_HOPS} hops, a cut): one "
+        f"MultiStreamWTW (B = {len(pairs)}), wall {sweep_wall:.3f} s, {len(dispatches)} dispatches, "
+        f"{sweep_wall / len(dispatches) * 1e3:.3f} ms a dispatch, {n} batched DP and backtrack launches (a window "
+        f"slot each); every stream == its solo AsyncWTW (align_pair); {time.perf_counter() - t2:.1f} s")
+
+    # the same streams at w = 20 against FusedMultiStreamWTW (kernel #10),
+    # fed the harness's chunks directly
+    chunks = [np.array_split(corpus._cached("audio", live, np.float64, device), 4096) for _, live in pairs]
+    refs = [ref for ref, _ in pairs]
+    engines = (MultiStreamWTW(refs, corpus.DEFAULT_WTW_PARAMS, transfer_dtype="float32", device=device),
+               FusedMultiStreamWTW(refs, corpus.DEFAULT_WTW_PARAMS, transfer_dtype="float32", device=device))
+    walls = []
+    for ms in engines:
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        for t in range(max(len(c) for c in chunks)):
+            ms.insert([c[t] if t < len(c) else None for c in chunks])
+        ms.flush()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t4)
+    if engines[0].paths() != engines[1].paths() or engines[0].pointers() != engines[1].pointers():
+        raise AssertionError("phase 14 (e): MultiStreamWTW at w = 20 differs from FusedMultiStreamWTW")
+    bytes_a_stream = engines[0]._stepper.device_bytes() / len(pairs)
+    # cudaLaunchKernel a dispatch over a traced slice of a fresh engine
+    from torch.profiler import ProfilerActivity, profile
+
+    ms = MultiStreamWTW(refs, ASYNC_WIDE, transfer_dtype="float32", device=device)
+    count = []
+    ms._dispatch = lambda ks, _d=ms._dispatch: count.append(1) or _d(ks)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for t in range(ASYNC_SWEEP_TRACE_CHUNKS):
+            ms.insert([c[t] if t < len(c) else None for c in chunks])
+        torch.cuda.synchronize()
+    calls = sum(e.count for e in prof.key_averages() if e.key == "cudaLaunchKernel")
+    log(f"phase 14 (e) [{card}]: at w = 20, B = {len(pairs)}: MultiStreamWTW == FusedMultiStreamWTW stream by "
+        f"stream (paths, pointers), walls {walls[0]:.3f} s and {walls[1]:.3f} s; {bytes_a_stream / 2**20:.3f} MiB "
+        f"of device state a stream (the references once); at w = 200, {calls / max(1, len(count)):.0f} "
+        f"cudaLaunchKernel a dispatch ({len(count)} dispatches traced)")
+    return launches, {"sweep_ms_a_dispatch": sweep_wall / len(dispatches) * 1e3, "sweep_dispatches": len(dispatches),
+                      "bytes_a_stream": bytes_a_stream}
+
+
 def ptxas_report(text: str) -> dict:
     """{mangled kernel name: (registers, stack bytes, spill store bytes,
     spill load bytes)} from nvcc's ``--ptxas-options=-v`` output."""
@@ -3681,6 +4108,15 @@ def main() -> int:
             multi_wtw_row, multi_wtw_extra = timed("12", phase_wtw_serving, device, root, card)
         log(f"phase 12: {phase_s['12']:.1f} s in all")
         timed("13", phase_online, device, root, card)
+        with warnings.catch_warnings():
+            from real_time_audio_sync_tpu_torch.models.wtw import WTWLongReferenceWarning
+
+            warnings.simplefilter("ignore", WTWLongReferenceWarning)
+            log(card)
+            batched = timed("14", phase_async_batched, device, card)
+            follow_launches, async_extra = timed("14", phase_async_follower, device, root, card)
+            corpus_launches, sweep_extra = timed("14", phase_async_corpus, device, root, card)
+        log(f"phase 14: {phase_s['14']:.1f} s in all")
 
     # "ms" is each kernel's device time per launch (profiler; the CUDA-event
     # time when the trace holds none); otw_insert_block's at k_block 8,
@@ -3693,6 +4129,11 @@ def main() -> int:
     rows.update(serving)
     rows["wtw_insert_block"] = wtw_row[:1] + (wtw_err,) + wtw_row[2:]
     rows["wtw_multi_insert_block"] = multi_wtw_row[:1] + (multi_wtw_err,) + multi_wtw_row[2:]
+    batched_extra = {}
+    for name, (_, err, d_ms, e_ms, p_ms, b_ms, b_by, extra) in batched.items():
+        rows[name] = (follow_launches + corpus_launches, err, d_ms, e_ms, p_ms, b_ms, b_by)
+        batched_extra[name] = dict(extra, follower_launches=follow_launches, corpus_launches=corpus_launches,
+                                   follower=async_extra, sweep=sweep_extra)
     kernels = []
     for name, (n_launch, err, d_ms, e_ms, p_ms, b_ms, b_by) in rows.items():
         _, source, replaces = KERNELS[name]
@@ -3710,6 +4151,8 @@ def main() -> int:
             kernels[-1].update(wtw_extra)
         if name == "wtw_multi_insert_block":  # B streams a launch; the launches of (b) and (c); the two kinds
             kernels[-1].update(multi_wtw_extra)
+        if name in batched_extra:  # phase 14: the batch timed, B solo launches beside it, the cells' figures
+            kernels[-1].update(batched_extra[name])
     order = sorted(phase_s, key=lambda name: int(name.split("-")[0]))
     log("seconds a phase: " + ", ".join(f"{name} {phase_s[name]:.1f}" for name in order))
     log(f"total {time.perf_counter() - t_start:.1f} s")

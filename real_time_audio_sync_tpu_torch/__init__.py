@@ -10,12 +10,13 @@ JAX nor the JAX package (whose ``__init__`` imports jax):
   built with ``nvcc`` at first use) beside their plain PyTorch versions.
 - ``models``    — the online OTW/LiveNote/LiveNoteV2 engines on tensors
   (exported here under the JAX package's names), the fused streaming
-  engine, offline DTW (dense wavefront and banded) and WTW.
+  engine, offline DTW (dense wavefront and banded) and WTW (the host
+  engine, ``AsyncWTW``, exported here, and the fused kernel's).
 - ``streaming`` — hop framing and the live ``ScoreFollower``.
 - ``eval``      — beat ground truth, the path scorer, field logs, the
   synthetic corpus, the pair and corpus runners and their CLI.
 - ``parallel``  — multi-stream serving on one card (``MultiStreamFollower``,
-  exported here, and the fused followers).
+  exported here, ``MultiStreamWTW`` and the fused followers).
 - ``utils``     — wav IO, profiling, and state conversion to and from the
   JAX engine's layout.
 
@@ -30,7 +31,7 @@ from real_time_audio_sync_tpu_torch.features.chroma import (  # noqa: F401
     wav_to_chroma_col,
     wav_to_chroma_diff,
 )
-from real_time_audio_sync_tpu_torch.models import LiveNote, LiveNoteV2, OnlineTimeWarping  # noqa: F401
+from real_time_audio_sync_tpu_torch.models import AsyncWTW, LiveNote, LiveNoteV2, OnlineTimeWarping  # noqa: F401
 from real_time_audio_sync_tpu_torch.parallel import MultiStreamFollower  # noqa: F401
 
 __version__ = "0.1.0"

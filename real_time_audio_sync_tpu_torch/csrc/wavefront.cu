@@ -31,6 +31,9 @@
 //   blockIdx, so a strip's producer holds an earlier ticket and is already
 //   running: no deadlock at any strip count or block order.  The critical
 //   path is about N steps plus, a strip, two phases and one hand-off.
+//   A batch of B matrices of one shape is one launch: ticket t is strip t % S
+//   of matrix t / S (S strips a matrix), so a strip's producer still holds
+//   the ticket before it, and each matrix has its own edge rows.
 //
 // wavefront_backtrack_kernel replaces pallas_wavefront.py: backtrack_pallas
 // (:181), body _make_backtrack_kernel (:147).
@@ -48,6 +51,7 @@
 //   fills; the warp writes the points out coalesced and stages the next
 //   tile.  The path moves only up, left or diagonally, so it crosses a tile
 //   in at least 64 steps.  The whole warp writes the frozen (0, 0) tail.
+//   A batch of B matrices is one launch of B blocks, a warp a matrix.
 //
 // Numerics: each cell is wavefront_step.cuh's first_min (nb + w*c with
 // explicit round-to-nearest intrinsics, strict <, IEEE infinities outside
@@ -147,12 +151,13 @@ __device__ __forceinline__ double EdgeWord<double>::value() const {
 
 constexpr int STEP_GROUP = 8;  // steps a group: their cost loads go out before the first step
 
-// workspace (zeroed): int [0] the ticket; from byte 16, edge row s (strip
-// s's bottom row, N columns of kEdgeWords<T> words) for s < strips - 1.
+// workspace (zeroed): int [0] the ticket; from byte 16, for each matrix b of
+// the batch, edge row s (strip s's bottom row, N columns of kEdgeWords<T>
+// words) for s < strips - 1.
 template <typename T, int R, int K0, int K1, int K2>
 __global__ void __launch_bounds__(LANES)
 wavefront_dp_kernel(const T* __restrict__ cost, T* acc, int8_t* __restrict__ back, long long m,
-                    long long n, Spec spec, int* workspace) {
+                    long long n, int strips, Spec spec, int* workspace) {
   constexpr int H = LANES * R;  // rows of a strip
   extern __shared__ __align__(16) unsigned char dp_smem[];
   DpShared<T, R>& sh = *reinterpret_cast<DpShared<T, R>*>(dp_smem);
@@ -165,15 +170,21 @@ wavefront_dp_kernel(const T* __restrict__ cost, T* acc, int8_t* __restrict__ bac
   sp.kind[2] = K2;
   const int lane = threadIdx.x;
 
-  int s = 0;
-  if (lane == 0) s = atomicAdd(workspace, 1);
-  s = __shfl_sync(FULL, s, 0);
+  int ticket = 0;
+  if (lane == 0) ticket = atomicAdd(workspace, 1);
+  ticket = __shfl_sync(FULL, ticket, 0);
+  const int s = ticket % strips;  // strip s of matrix b
+  const long long b = ticket / strips;
+  cost += b * m * n;
+  acc += b * m * n;
+  back += b * m * n;
   const long long row0 = static_cast<long long>(s) * H;
   const int rows = static_cast<int>(m - row0 < H ? m - row0 : H);  // rows of this strip in the matrix
   const bool has_below = row0 + H < m;
   const int n_cols = static_cast<int>(n);  // M + N - 1 < 2^31 (points are int32)
   const int n_chunks = (n_cols + CHUNK - 1) / CHUNK;
-  unsigned long long* edges = reinterpret_cast<unsigned long long*>(workspace + 4);
+  unsigned long long* edges =
+      reinterpret_cast<unsigned long long*>(workspace + 4) + b * (strips - 1) * n * kEdgeWords<T>;
   unsigned long long* my_edge = edges + static_cast<long long>(s) * n * kEdgeWords<T>;
   const unsigned long long* above_edge = my_edge - n * kEdgeWords<T>;
   EdgeWord<T> next;  // lane u: the row above at column 32(p+1) + u, loaded a phase ahead
@@ -302,6 +313,9 @@ wavefront_backtrack_kernel(const int8_t* __restrict__ back, int* __restrict__ po
   __shared__ __align__(16) uint32_t tile[(BT_TILE + 2) * BT_STRIDE / 4];
   __shared__ int buf[BT_BUF];
   const int lane = threadIdx.x;
+  back += static_cast<long long>(blockIdx.x) * m * n;  // matrix blockIdx.x of the batch
+  points += static_cast<long long>(blockIdx.x) * (m + n - 1) * 2;
+  length_out += blockIdx.x;
   unsigned deltas = 0;  // byte k: the offset of code k's step
 #pragma unroll
   for (int k = 0; k < 4; ++k)
@@ -417,13 +431,15 @@ struct Dp {
   static cudaError_t attributes() {
     return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   }
-  static cudaError_t launch(const void* cost, void* acc, void* back, long long m, long long n, const Spec& spec,
-                            int* workspace, cudaStream_t stream) {
+  static cudaError_t launch(const void* cost, void* acc, void* back, long long batch, long long m, long long n,
+                            const Spec& spec, int* workspace, cudaStream_t stream) {
     const cudaError_t e = attributes();
     if (e != cudaSuccess) return e;
     const long long strips = (m + LANES * DP_R - 1) / (LANES * DP_R);
-    kernel<<<static_cast<unsigned>(strips), LANES, smem, stream>>>(
-        static_cast<const T*>(cost), static_cast<T*>(acc), static_cast<int8_t*>(back), m, n, spec, workspace);
+    if (batch * strips > 0x7fffffffLL) return cudaErrorInvalidValue;  // the ticket is an int
+    kernel<<<static_cast<unsigned>(batch * strips), LANES, smem, stream>>>(
+        static_cast<const T*>(cost), static_cast<T*>(acc), static_cast<int8_t*>(back), m, n,
+        static_cast<int>(strips), spec, workspace);
     return cudaGetLastError();
   }
   static cudaError_t resident(int* blocks) {
@@ -450,20 +466,22 @@ cudaError_t with_kinds(int k0, int k1, int k2, F&& f) {
 
 }  // namespace
 
-// Bytes of the zeroed workspace wavefront_dp needs for an (m, n) cost.
-extern "C" long long wavefront_dp_workspace_bytes(long long m, long long n, int is_double) {
+// Bytes of the zeroed workspace wavefront_dp needs for a batch of `batch`
+// (m, n) costs.
+extern "C" long long wavefront_dp_workspace_bytes(long long batch, long long m, long long n, int is_double) {
   const long long strips = (m + LANES * DP_R - 1) / (LANES * DP_R);
-  return 16 + (strips - 1) * n * 8 * (is_double ? 2 : 1);
+  return 16 + batch * (strips - 1) * n * 8 * (is_double ? 2 : 1);
 }
 
-extern "C" int wavefront_dp(void* cost, void* acc, void* back, long long m, long long n,
+// The DP over `batch` (m, n) costs stored one after another, one launch.
+extern "C" int wavefront_dp(void* cost, void* acc, void* back, long long batch, long long m, long long n,
                             int is_double, int kind0, int kind1, int kind2, double w0,
                             double w1, double w2, int code0, int code1, int code2,
                             int corner, void* workspace, void* stream) {
   Spec spec{{kind0, kind1, kind2}, {w0, w1, w2}, {code0, code1, code2}, corner};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int* ws = static_cast<int*>(workspace);
-  auto go = [&](auto dp) { return decltype(dp)::launch(cost, acc, back, m, n, spec, ws, s); };
+  auto go = [&](auto dp) { return decltype(dp)::launch(cost, acc, back, batch, m, n, spec, ws, s); };
   const cudaError_t e = is_double ? with_kinds<double>(kind0, kind1, kind2, go)
                                   : with_kinds<float>(kind0, kind1, kind2, go);
   return static_cast<int>(e);
@@ -479,11 +497,14 @@ extern "C" int wavefront_dp_resident(int is_double, int* blocks) {
 extern "C" int wavefront_dp_strip_rows() { return LANES * DP_R; }
 
 
-extern "C" int wavefront_backtrack(void* back, void* points, void* length, long long m,
+// The backtrack of `batch` (m, n) code matrices stored one after another, one
+// launch: points (batch, m + n - 1, 2), length (batch).
+extern "C" int wavefront_backtrack(void* back, void* points, void* length, long long batch, long long m,
                                    long long n, int di0, int di1, int di2, int di3, int dj0,
                                    int dj1, int dj2, int dj3, void* stream) {
+  if (batch > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   Table table{{di0, di1, di2, di3}, {dj0, dj1, dj2, dj3}};
-  wavefront_backtrack_kernel<<<1, LANES, 0, static_cast<cudaStream_t>(stream)>>>(
+  wavefront_backtrack_kernel<<<static_cast<unsigned>(batch), LANES, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int8_t*>(back), static_cast<int*>(points), static_cast<int*>(length), m, n,
       table);
   return static_cast<int>(cudaGetLastError());

@@ -3,7 +3,7 @@
 
 Examples::
 
-    # the ported engines on one pair, on the card (test_simple.py driver)
+    # every engine on one pair, on the card (test_simple.py driver)
     python -m real_time_audio_sync_tpu_torch.eval --ref ref.wav --live live.wav
 
     # one engine
@@ -18,13 +18,11 @@ Examples::
     # score a recorded field log against ground-truth CSVs
     python -m real_time_audio_sync_tpu_torch.eval --score-log tests/x.txt --ref-csv a.csv --live-csv b.csv
 
-Ported so far: ``--engine dtw`` and the online engines otw, livenote,
-livenote_v2 and livenote_v2_diff in both modes; and ``--engine wtw`` with
-``--mode fused`` or ``--mode oracle``.  Without ``--engine``, ``--corpus``
-sweeps livenote_v2_diff (the JAX default) and ``--ref/--live`` runs the
-engines whose insert mode is ported; the JAX CLI there runs every engine,
-"wtw" too, whose insert mode (AsyncWTW, ROADMAP.md Queue 1 item 7c) raises
-``NotImplementedError`` here.
+Every engine and mode of the JAX CLI runs: ``--engine dtw``, the online
+engines otw, livenote, livenote_v2 and livenote_v2_diff in both modes, and
+``--engine wtw`` with ``--mode insert``, ``fused`` or ``oracle``.  Without
+``--engine``, ``--corpus`` sweeps livenote_v2_diff and ``--ref/--live``
+runs every engine, as the JAX CLI does.
 """
 
 from __future__ import annotations
@@ -39,8 +37,8 @@ def main(argv=None) -> int:
     ap.add_argument("--ref", help="reference recording (wav)")
     ap.add_argument("--live", help="live recording (wav)")
     ap.add_argument("--engine", default=None, help=(
-        "dtw|otw|livenote|livenote_v2|livenote_v2_diff|wtw (default: the engines whose insert mode is "
-        "ported for --ref/--live, livenote_v2_diff for --corpus)"))
+        "dtw|otw|livenote|livenote_v2|livenote_v2_diff|wtw (default: all for --ref/--live, "
+        "livenote_v2_diff for --corpus)"))
     ap.add_argument("--corpus", help="corpus directory (test_all sweep)")
     ap.add_argument("--field-log", help="recorded field log for the BSO cross-check during --corpus")
     ap.add_argument("--score-log", help="score a recorded field log instead of aligning")
@@ -83,7 +81,7 @@ def main(argv=None) -> int:
         return 0
 
     if args.ref and args.live:
-        from real_time_audio_sync_tpu_torch.eval.corpus import PORTED_ENGINES, align_pair, run_simple
+        from real_time_audio_sync_tpu_torch.eval.corpus import ENGINES, align_pair, run_simple
 
         if args.engine:
             result = align_pair(args.ref, args.live, args.engine, dtype=dtype, mode=args.mode, device=args.device)
@@ -92,7 +90,7 @@ def main(argv=None) -> int:
                 print(f"Percent incorrect (within {t} beat{'s' if t > 1 else ''}): {s.pct_off_beats[t]} %")
             print(f"Percent incorrect (within 3 seconds): {s.pct_off_3s} %")
         else:
-            run_simple(args.ref, args.live, PORTED_ENGINES, dtype=dtype, device=args.device)
+            run_simple(args.ref, args.live, ENGINES, dtype=dtype, device=args.device)
         return 0
 
     ap.print_help()

@@ -16,12 +16,12 @@ livenote_v2_diff) in ``mode="insert"`` (frame-by-frame streaming through
 the tensor engines, the default, as in the JAX package) and
 ``mode="fused"`` (whole-pair set_live, the set_live kernel on a CUDA
 device; a corpus sweep of two or more pairs is one batched launch); and
-``engine="wtw"`` with modes "fused" (the fused WTW kernel; a corpus sweep
-of two or more pairs is one ``FusedMultiStreamWTW`` run, one launch a
-block for every pair) and "oracle" (the host ``WTW``).  What is not ported
-yet raises ``NotImplementedError`` naming its ROADMAP.md item: WTW's
-insert mode and its fused mode above 128-frame windows (both ``AsyncWTW``,
-item 7c).
+``engine="wtw"`` in its three modes: "insert" (``AsyncWTW``, the block step
+on the device, each due window through the wavefront kernels), "fused"
+(the fused WTW kernel up to 128-frame windows, ``AsyncWTW`` above; a corpus
+sweep of two or more pairs is one ``FusedMultiStreamWTW`` run, one launch a
+block for every pair, or one ``MultiStreamWTW`` run above 128 frames) and
+"oracle" (the host ``WTW``).
 """
 
 from __future__ import annotations
@@ -52,9 +52,6 @@ DEFAULT_WTW_PARAMS = {  # tests.py:174
 }
 
 ENGINES = ("dtw", "otw", "livenote", "livenote_v2", "livenote_v2_diff", "wtw")
-#: the engines whose insert mode is ported: run_simple's default until
-#: AsyncWTW (ROADMAP.md Queue 1, item 7c) brings "wtw"
-PORTED_ENGINES = ("dtw", "otw", "livenote", "livenote_v2", "livenote_v2_diff")
 
 # Feature memo for corpus sweeps: each recording appears in up to |recs|−1
 # pairs of a sweep and in every engine of it.  Keyed by (path, mtime, kind,
@@ -175,11 +172,11 @@ def align_pair(
     direction-first loop can commit slightly different best points than
     streaming insert, as in the reference.  ``engine="wtw"`` streams the
     live recording's samples in ``np.array_split(live, 4096)`` chunks (the
-    harness's quirk, tests.py:186) through :class:`FusedWTW` (``mode=
-    "fused"``, k_block 8) or the host :class:`WTW` (``mode="oracle"``, the
-    parity oracle), with ``params`` or :data:`DEFAULT_WTW_PARAMS`.
-    Argument checks are the JAX package's; WTW's insert mode, not ported
-    yet, raises ``NotImplementedError``."""
+    harness's quirk, tests.py:186) through :class:`AsyncWTW` (``mode=
+    "insert"``, k_block 8, in ``dtype``), :class:`FusedWTW` (``mode=
+    "fused"``, k_block 8; ``AsyncWTW`` above 128-frame windows) or the host
+    :class:`WTW` (``mode="oracle"``, the parity oracle), with ``params`` or
+    :data:`DEFAULT_WTW_PARAMS`.  Argument checks are the JAX package's."""
     if engine not in ENGINES:
         raise ValueError(f"unknown engine {engine!r}; choose from {ENGINES}")
     if mode not in ("insert", "fused", "oracle"):
@@ -221,18 +218,16 @@ def _wtw_path(ref_wav: str, live_wav: str, params, dtype, mode: str, device):
     eval/corpus.py:137-170): the live samples in 4096 chunks through the
     engine of ``mode``."""
     from real_time_audio_sync_tpu_torch.config import WTWParams
-    from real_time_audio_sync_tpu_torch.models import WTW, FusedWTW
+    from real_time_audio_sync_tpu_torch.models import WTW, AsyncWTW, FusedWTW
     from real_time_audio_sync_tpu_torch.ops.wtw_insert import MAX_W
 
     wp = WTWParams.from_any(params)
-    if mode == "insert" or wp.dtw_win_size // wp.hop_size > MAX_W:
-        raise NotImplementedError(
-            f"align_pair(engine='wtw', mode={mode!r}) at a {wp.dtw_win_size // wp.hop_size}-frame window runs "
-            "AsyncWTW, which is not ported yet: ROADMAP.md Queue 1, item 7c")
     if mode == "oracle":
         wtw = WTW(ref_wav, params, dtype=dtype, device=device)
-    else:
+    elif mode == "fused" and wp.dtw_win_size // wp.hop_size <= MAX_W:
         wtw = FusedWTW(ref_wav, params, k_block=8, device=device)
+    else:  # the insert mode, and the fused mode above the fused kernel's windows
+        wtw = AsyncWTW(ref_wav, params, k_block=8, dtype=dtype, device=device)
     live = _cached("audio", live_wav, np.float64, device)
     for buf in np.array_split(live, 4096):  # tests.py:186
         if wtw.insert(buf) == "stop":
@@ -284,14 +279,13 @@ class CorpusRunner:
     pair through :func:`align_pair` in turn — or, in ``mode="fused"`` with
     two or more pairs, all of them at once: an online engine through one
     batched set_live launch, WTW as the streams of one
-    :class:`~real_time_audio_sync_tpu_torch.parallel.FusedMultiStreamWTW`."""
+    :class:`~real_time_audio_sync_tpu_torch.parallel.FusedMultiStreamWTW`
+    (:class:`~real_time_audio_sync_tpu_torch.parallel.MultiStreamWTW` above
+    128-frame windows).  WTW's insert mode runs the pairs in turn through
+    ``AsyncWTW``."""
 
     def __init__(self, recordings_dir: str, engine: str = "livenote_v2_diff", params: Optional[dict] = None,
                  dtype=np.float32, mode: str = "insert", *, device="cuda"):
-        if engine == "wtw" and mode == "insert":
-            raise NotImplementedError(
-                "CorpusRunner(engine='wtw', mode='insert') runs AsyncWTW, which is not ported yet: "
-                "ROADMAP.md Queue 1, item 7c")
         self.recordings_dir = recordings_dir
         self.engine = engine
         self.params = params
@@ -375,24 +369,25 @@ class CorpusRunner:
         return results
 
     def _evaluate_wtw_batched(self, pairs: List[Tuple[str, str]], verbose: bool) -> List[PairResult]:
-        """All pairs through one :class:`FusedMultiStreamWTW` (k_block 8) on
-        their references, each stream fed its live recording in the
-        harness's ``np.array_split(live, 4096)`` chunks (tests.py:186),
-        ``None`` once they run out; per-pair paths equal solo
-        :func:`align_pair` ``(engine="wtw", mode="fused")``."""
+        """All pairs through one :class:`FusedMultiStreamWTW` (k_block 8; a
+        :class:`MultiStreamWTW` above 128-frame windows, JAX
+        eval/corpus.py:420-431) on their references, each stream fed its
+        live recording in the harness's ``np.array_split(live, 4096)``
+        chunks (tests.py:186), ``None`` once they run out; per-pair paths
+        equal solo :func:`align_pair` ``(engine="wtw", mode="fused")``."""
         from real_time_audio_sync_tpu_torch.config import WTWParams
         from real_time_audio_sync_tpu_torch.ops.wtw_insert import MAX_W
-        from real_time_audio_sync_tpu_torch.parallel import FusedMultiStreamWTW
+        from real_time_audio_sync_tpu_torch.parallel import FusedMultiStreamWTW, MultiStreamWTW
 
         if np.dtype(self.dtype) != np.float32:
             raise ValueError("mode='fused' runs the float32 device backends")
         p = self.params or DEFAULT_WTW_PARAMS
         wp = WTWParams.from_any(p)
-        if wp.dtw_win_size // wp.hop_size > MAX_W:
-            raise NotImplementedError(
-                f"a WTW sweep at a {wp.dtw_win_size // wp.hop_size}-frame window runs MultiStreamWTW, which is "
-                "not ported yet: ROADMAP.md Queue 1, item 7c")
-        ms = FusedMultiStreamWTW([r for r, _ in pairs], p, k_block=8, transfer_dtype="float32", device=self.device)
+        if wp.dtw_win_size // wp.hop_size <= MAX_W:
+            ms = FusedMultiStreamWTW([r for r, _ in pairs], p, k_block=8, transfer_dtype="float32",
+                                     device=self.device)
+        else:
+            ms = MultiStreamWTW([r for r, _ in pairs], p, k_block=8, transfer_dtype="float32", device=self.device)
         chunks = [np.array_split(_cached("audio", live_wav, np.float64, self.device), 4096) for _, live_wav in pairs]
         for t in range(max(len(c) for c in chunks)):
             ms.insert([c[t] if t < len(c) else None for c in chunks])
@@ -407,14 +402,11 @@ class CorpusRunner:
         return results
 
 
-def run_simple(ref_wav: str, live_wav: str, engines: Sequence[str] = PORTED_ENGINES, dtype=np.float32,
+def run_simple(ref_wav: str, live_wav: str, engines: Sequence[str] = ENGINES, dtype=np.float32,
                verbose: bool = True, *, device="cuda") -> Dict[str, PairResult]:
-    """The test_simple.py:94-198 smoke run: each engine on one pair in the
-    insert mode, with bucket accuracies.  By default the engines whose
-    insert mode is ported (:data:`PORTED_ENGINES`); the JAX package's
-    default, every engine, adds "wtw", whose insert mode runs AsyncWTW
-    (not ported yet: ROADMAP.md Queue 1, item 7c), and an engine that is
-    not ported raises."""
+    """The test_simple.py:94-198 smoke run: each engine (by default every
+    one, :data:`ENGINES`, as in the JAX package) on one pair in the insert
+    mode, with bucket accuracies."""
     out = {}
     for engine in engines:
         result = align_pair(ref_wav, live_wav, engine, dtype=dtype, device=device)

@@ -91,8 +91,7 @@ class FusedWTW(StatusPolling):
         if self._w > wtw_insert.MAX_W:
             raise ValueError(
                 f"window of {self._w} frames exceeds the fused kernel's "
-                f"{wtw_insert.MAX_W}-lane layout; use AsyncWTW for larger windows "
-                "(not ported yet: ROADMAP.md Queue 1, item 7c)")
+                f"{wtw_insert.MAX_W}-lane layout; use AsyncWTW for larger windows")
 
         self.chroma_ref = chroma_from_samples(self.ref, dtype=self.dtype, device=self.device)
         self.M = self.chroma_ref.shape[1]

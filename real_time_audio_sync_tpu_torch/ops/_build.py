@@ -52,11 +52,11 @@ SIGNATURES = {
         "otw_band_workspace_floats": ([_I, _I], ctypes.c_int),
     },
     "wavefront": {
-        "wavefront_dp": ([_P] * 3 + [_L] * 2 + [_I] * 4 + [ctypes.c_double] * 3 + [_I] * 4 + [_P] * 2, ctypes.c_int),
-        "wavefront_dp_workspace_bytes": ([_L, _L, _I], ctypes.c_longlong),
+        "wavefront_dp": ([_P] * 3 + [_L] * 3 + [_I] * 4 + [ctypes.c_double] * 3 + [_I] * 4 + [_P] * 2, ctypes.c_int),
+        "wavefront_dp_workspace_bytes": ([_L, _L, _L, _I], ctypes.c_longlong),
         "wavefront_dp_resident": ([_I, _P], ctypes.c_int),
         "wavefront_dp_strip_rows": ([], ctypes.c_int),
-        "wavefront_backtrack": ([_P] * 3 + [_L] * 2 + [_I] * 8 + [_P], ctypes.c_int),
+        "wavefront_backtrack": ([_P] * 3 + [_L] * 3 + [_I] * 8 + [_P], ctypes.c_int),
         "wavefront_error_string": ([_I], ctypes.c_char_p),
     },
     "wtw_insert": {

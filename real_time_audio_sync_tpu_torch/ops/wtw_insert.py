@@ -141,16 +141,17 @@ def window_cost(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """(w_x, w_y) cosine cost with norm division between live rows ``x``
     (w_x, F) and reference rows ``y`` (w_y, F) (wtw.py:162-171):
     ``1 − dot / (nx·ny)``, each dot and squared norm a sequential sum over
-    f of rounded products — the kernel's order.  Zero columns give the
-    reference's non-finite values."""
-    dot = torch.zeros((x.shape[0], y.shape[0]), dtype=x.dtype, device=x.device)
-    sx = torch.zeros(x.shape[0], dtype=x.dtype, device=x.device)
-    sy = torch.zeros(y.shape[0], dtype=y.dtype, device=y.device)
-    for f in range(x.shape[1]):
-        dot = dot + x[:, f, None] * y[None, :, f]
-        sx = sx + x[:, f] * x[:, f]
-        sy = sy + y[:, f] * y[:, f]
-    return 1.0 - dot / (_sqrt_rn(sx)[:, None] * _sqrt_rn(sy)[None, :])
+    f of rounded products — the kernel's order.  Leading batch axes of
+    ``x`` and ``y`` broadcast, each window with the same operations.  Zero
+    columns give the reference's non-finite values."""
+    dot = torch.zeros((*x.shape[:-1], y.shape[-2]), dtype=x.dtype, device=x.device)
+    sx = torch.zeros(x.shape[:-1], dtype=x.dtype, device=x.device)
+    sy = torch.zeros(y.shape[:-1], dtype=y.dtype, device=y.device)
+    for f in range(x.shape[-1]):
+        dot = dot + x[..., :, f, None] * y[..., None, :, f]
+        sx = sx + x[..., f] * x[..., f]
+        sy = sy + y[..., f] * y[..., f]
+    return 1.0 - dot / (_sqrt_rn(sx)[..., :, None] * _sqrt_rn(sy)[..., None, :])
 
 
 def _check(state: WTWState, cols: torch.Tensor, lens, w: int, hop_frames: int, k_block: int,

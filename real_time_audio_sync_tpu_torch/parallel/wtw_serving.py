@@ -1,6 +1,9 @@
 """Multi-stream WTW serving: follow B concurrent raw-audio performances on
-one card with one kernel launch per hop block (the JAX package's
-``parallel/wtw_serving.py`` ``FusedMultiStreamWTW``, :386-616).
+one card, one dispatch a hop block for all of them (the JAX package's
+``parallel/wtw_serving.py``): ``MultiStreamWTW`` (:56-341), B
+``AsyncWTW`` block steps advanced together at any window size and in
+float64, and ``FusedMultiStreamWTW`` (:386-616), one kernel launch a block
+for windows up to 128 frames.
 
 Users: one card following many listeners, each with a microphone, against
 one concert (the reference stored once), and WTW corpus sweeps, which run
@@ -22,9 +25,18 @@ its path, are a solo ``FusedWTW``'s whatever the other streams are fed;
 extraction, as the JAX engine does; ``"auto"`` resolves through
 ``parallel/transfer.py``.
 
-Not ported yet: ``MultiStreamWTW`` (the vmapped XLA engine, and so windows
-above 128 frames) waits for ROADMAP.md Queue 1 item 7c; ``mesh=`` (stream
-sharding over several cards) for item 9.
+``MultiStreamWTW`` runs ``models/wtw_async.BlockStepper`` over B streams:
+the host plans each stream's block (which column makes a window due, its
+live rows, the stops it can see) without a read of the card, and each
+window slot of a block in which any stream has a due window is ONE launch
+of the DP kernel and one of the backtrack kernel (TPU kernels #7 and #8)
+over the due streams' windows, gathered by an index tensor; a stream whose
+device state has stopped is masked in the commit.  Where the JAX engine
+vmaps its block step and so takes the lax wavefront (its Pallas batching
+rule does not apply), the card batches the kernels themselves.
+
+Not ported yet: ``mesh=`` (stream sharding over several cards), ROADMAP.md
+Queue 1 item 9.
 """
 
 from __future__ import annotations
@@ -35,15 +47,257 @@ import numpy as np
 import torch
 
 from real_time_audio_sync_tpu_torch.config import FS, WTWParams
-from real_time_audio_sync_tpu_torch.features.chroma import chroma_from_samples, chroma_spans_tiled, host_chroma_frames
+from real_time_audio_sync_tpu_torch.features.chroma import (
+    chroma_from_samples,
+    chroma_spans_tiled,
+    host_chroma_frames,
+    torch_dtype,
+)
 from real_time_audio_sync_tpu_torch.models.fused_streaming import _DELTA_STACK, fold_delta_tail
 from real_time_audio_sync_tpu_torch.models.wtw import SampleFIFO, _check_ref_window
-from real_time_audio_sync_tpu_torch.models.wtw_async import build_span
+from real_time_audio_sync_tpu_torch.models.wtw_async import TRANSFER_MODES, BlockStepper, build_span, check_dtype
 from real_time_audio_sync_tpu_torch.ops import wtw_insert
 from real_time_audio_sync_tpu_torch.ops.wtw_insert import WS_CHROMA, WS_LIVE, WS_REF
 from real_time_audio_sync_tpu_torch.parallel.polling import BatchedStatusPolling
 from real_time_audio_sync_tpu_torch.parallel.serving import DeltaPathDrain, PinnedStaging
 from real_time_audio_sync_tpu_torch.utils.wavio import load_wav
+
+
+
+def _pack_chroma(bufs, ks, k_block: int, hop: int, fft: int, dtype) -> np.ndarray:
+    """(B, 12, k_block) host chroma columns of a block, consuming each
+    stream's ``ks[i]`` columns of samples: the valid frames of every stream
+    packed into one host extraction, as the JAX engines do (columns past a
+    stream's count stay zero; the block step never reads them)."""
+    active = [(i, int(k)) for i, k in enumerate(ks) if k > 0]
+    out = np.zeros((len(bufs), 12, k_block), dtype)
+    if not active:
+        return out
+    frames = np.zeros((sum(k for _, k in active), fft), dtype)
+    row = 0
+    for i, k in active:
+        span = build_span(bufs[i], k, k_block, hop, fft, dtype)
+        stride = span.strides[0]
+        frames[row : row + k] = np.lib.stride_tricks.as_strided(span, shape=(k, fft), strides=(hop * stride, stride))
+        row += k
+    cols = host_chroma_frames(frames, n_fft=fft, overwrite_frames=True)
+    row = 0
+    for i, k in active:
+        out[i, :, :k] = cols[:, row : row + k]
+        row += k
+    return out
+
+
+def _sample_spans(bufs, ks, k_block: int, hop: int, fft: int, dtype, transfer_dtype: str) -> np.ndarray:
+    """(B, span) sample spans of a block (float, or int16 for
+    ``transfer_dtype="int16"``), consuming each stream's ``ks[i]`` columns."""
+    spans = np.zeros((len(bufs), (k_block - 1) * hop + fft), dtype)
+    for i, k in enumerate(ks):
+        if k > 0:
+            spans[i] = build_span(bufs[i], int(k), k_block, hop, fft, dtype)
+    if transfer_dtype == "int16":
+        return np.clip(np.round(spans * 32768.0), -32768, 32767).astype(np.int16)
+    return spans
+
+
+class MultiStreamWTW(BatchedStatusPolling):
+    """Follow ``B`` raw-audio streams concurrently, one dispatch a block.
+
+    ``refs``: per-stream reference recordings (wav paths or 1-D sample
+    arrays); identical entries (by path, or by object identity for arrays)
+    are extracted and stored once, and a reference the streams share is
+    stored once on the card.  ``ref_chromas``: precomputed (12, m)
+    chromagrams, one per stream or one for all (identical entries by
+    object identity count as shared).  Each stream keeps its own reference
+    length ``m`` and live capacity ``n_cap = 2m``, zero-padded to the
+    longest.  :meth:`insert` takes one sample buffer per stream (``None``
+    for no new audio); a block dispatches whenever any stream holds
+    ``k_block`` hop columns, every other stream contributing what it has,
+    so a stream's path does not depend on how the others are fed.
+    :meth:`flush` dispatches the ragged tails and waits; :meth:`paths`,
+    :meth:`pointers` and :attr:`stopped` read per-stream results (each
+    waits for the card).
+
+    The positional order is the JAX engine's; ``dtype`` is float32 or
+    float64; ``mesh`` must be None; ``device`` is where the state lives and
+    the block step runs (a CUDA device launches kernels #7 and #8, ``"cpu"``
+    runs their plain versions)."""
+
+    def __init__(self, refs: Sequence, params, k_block: int = 8, dtype=np.float32, mesh=None,
+                 transfer_dtype: str = "auto", ref_chromas: Optional[Sequence] = None, *, device="cuda"):
+        if mesh is not None:
+            raise NotImplementedError("mesh=: stream sharding over several cards is not ported yet "
+                                      "(ROADMAP Queue 1 item 9)")
+        self.mesh = None
+        self.params = WTWParams.from_any(params)
+        self.k_block = int(k_block)
+        self.device = torch.device(device)
+        if transfer_dtype not in TRANSFER_MODES:
+            raise ValueError(f"unknown transfer_dtype {transfer_dtype!r}")
+        from real_time_audio_sync_tpu_torch.parallel.transfer import resolve_transfer_mode
+
+        self.transfer_dtype = resolve_transfer_mode(transfer_dtype, len(refs), self.k_block, self.params.fft_len,
+                                                    self.params.hop_size, device=self.device)
+        self.dtype = check_dtype(dtype)
+        self.fft_len = self.params.fft_len
+        self.hop_size = self.params.hop_size
+        self._w = self.params.dtw_win_size // self.hop_size
+        self._hop_frames = self.params.dtw_hop_size // self.hop_size
+
+        unique, ids = self._ref_chromas(refs, ref_chromas)
+        self.b = len(ids)
+        if self.b == 0:
+            raise ValueError("need at least one stream")
+        self.ms = np.asarray([unique[u].shape[1] for u in ids], np.int32)
+        for i, m in enumerate(self.ms):
+            try:
+                _check_ref_window(int(m), self.params)
+            except ValueError as e:
+                raise ValueError(f"stream {i}: {e}") from None
+        self.n_caps = (2 * self.ms).astype(np.int32)  # per-stream live capacity (wtw.py:52)
+        self._shared_ref = len(unique) == 1
+        self._stepper = BlockStepper(unique, ids, self.n_caps, self._w, self._hop_frames, self.k_block, "auto",
+                                     self.dtype, self.device)
+
+        self.bufs = [SampleFIFO(self.dtype) for _ in range(self.b)]
+        self._stopped = np.zeros(self.b, bool)
+        self._span_len = (self.k_block - 1) * self.hop_size + self.fft_len
+        self._staging = None
+        if self.device.type == "cuda":
+            item = self.dtype.itemsize
+            payload = {"chroma": 12 * self.k_block * item, "int16": self._span_len * 2}.get(
+                self.transfer_dtype, self._span_len * item)
+            st = self._stepper
+            self._staging = PinnedStaging(PinnedStaging.nbytes(
+                self.b * payload, self.b * self.k_block * 8, st.max_slots * 4 * self.b * 4,
+                st.max_slots * self.b * 8), self.device)
+        self._init_batched_polling()
+
+    def _ref_chromas(self, refs, ref_chromas):
+        """The distinct (12, m) reference chromagrams on the device, and each
+        stream's index into them (the JAX engine's dedupe,
+        wtw_serving.py:94-128)."""
+        dt = torch_dtype(self.dtype)
+        unique, ids, memo = [], [], {}
+        if ref_chromas is not None:
+            if len(ref_chromas) == 1 and len(refs) > 1:
+                ref_chromas = list(ref_chromas) * len(refs)
+            if len(ref_chromas) != len(refs):
+                raise ValueError(f"ref_chromas has {len(ref_chromas)} entries for {len(refs)} streams")
+            for c in ref_chromas:
+                if id(c) not in memo:
+                    memo[id(c)] = len(unique)
+                    unique.append(torch.tensor(np.asarray(c, self.dtype), device=self.device))
+                ids.append(memo[id(c)])
+            return unique, ids
+        for r in refs:
+            key = r if isinstance(r, (str, bytes)) else id(r)
+            if key not in memo:
+                if isinstance(r, (str, bytes)):
+                    wav, fs = load_wav(r)
+                    assert fs == FS
+                else:
+                    wav = np.asarray(r)
+                memo[key] = len(unique)
+                unique.append(chroma_from_samples(wav, dtype=dt, device=self.device))
+            ids.append(memo[key])
+        return unique, ids
+
+    # -- the block's payload (wtw_serving.py:214-260) ---------------------------
+
+    def _avail_cols(self, i: int) -> int:
+        n = len(self.bufs[i])
+        return 0 if n < self.fft_len else (n - self.fft_len) // self.hop_size + 1
+
+    def _spans(self, ks: np.ndarray) -> np.ndarray:
+        """The block's host payload, consuming each stream's ``ks[i]``
+        columns of samples: (B, span) samples, or (B, 12, k_block) host
+        chroma for ``transfer_dtype="chroma"``."""
+        if self.transfer_dtype == "chroma":
+            return _pack_chroma(self.bufs, ks, self.k_block, self.hop_size, self.fft_len, self.dtype)
+        return _sample_spans(self.bufs, ks, self.k_block, self.hop_size, self.fft_len, self.dtype,
+                             self.transfer_dtype)
+
+    def _columns(self, payload: torch.Tensor, ks: np.ndarray) -> torch.Tensor:
+        """The block's (B, k_block, F) live columns on the device, each
+        stream's in the solo engine's tiles."""
+        if self.transfer_dtype == "chroma":
+            return payload.transpose(1, 2)
+        if self.transfer_dtype == "int16":
+            payload = payload.to(torch_dtype(self.dtype)) / 32768.0
+        return chroma_spans_tiled(payload, self.k_block, self.fft_len, self.hop_size, FS,
+                                  streams=np.nonzero(ks)[0].tolist())
+
+    def _dispatch(self, ks: np.ndarray) -> None:
+        payload = self._spans(ks)
+        st = self._stepper
+        pos, table, due, slots, counts = st.plan(ks)
+        if self._staging is not None:
+            payload_d, pos_d, table_d, due_d = self._staging.put(payload, pos, table, due)
+        else:
+            payload_d, pos_d, table_d, due_d = (torch.from_numpy(a) for a in (payload, pos, table, due))
+        self._record_status(st.run(self._columns(payload_d, ks), pos_d, table_d, due_d, slots, counts))
+        self._poll()
+
+    # -- streaming API ---------------------------------------------------------
+
+    def _block_counts(self) -> np.ndarray:
+        return np.asarray([0 if self._stopped[i] else min(self._avail_cols(i), self.k_block)
+                           for i in range(self.b)], np.int32)
+
+    def insert(self, stream_bufs: Sequence) -> np.ndarray:
+        """Append raw samples per stream (``None``: no new audio) and
+        dispatch every full block; non-blocking.  Returns the stopped mask
+        as of the last consumed status (lazy, like the solo engines)."""
+        if len(stream_bufs) != self.b:
+            raise ValueError(f"expected {self.b} buffers, got {len(stream_bufs)}")
+        for i, buf in enumerate(stream_bufs):
+            if buf is not None and not self._stopped[i]:
+                self.bufs[i].extend(buf)
+        while True:
+            ks = self._block_counts()
+            if ks.max(initial=0) < self.k_block:
+                break
+            self._dispatch(ks)
+        self._poll()
+        return self._stopped.copy()
+
+    def flush(self) -> np.ndarray:
+        """Dispatch every stream's remaining whole hop columns and wait for
+        every dispatch; returns the final stopped mask."""
+        while True:
+            ks = self._block_counts()
+            if ks.max(initial=0) <= 0:
+                break
+            self._dispatch(ks)
+        self._poll(block=True)
+        return self._stopped.copy()
+
+    def _poll(self, block: bool = False) -> None:
+        if block:
+            self._settle_status()
+        else:
+            self._poll_status()
+
+    def _consume(self, vec: np.ndarray) -> None:
+        self._stopped |= (vec[:, 0] & 1).astype(bool)
+        if (vec[:, 0] & 2).any():  # pragma: no cover - exact capacity bound
+            raise AssertionError("MultiStreamWTW path buffer overflow")
+
+    # -- inspection (each waits for the card) ----------------------------------
+
+    @property
+    def stopped(self) -> np.ndarray:
+        self._poll(block=True)
+        return self._stopped.copy()
+
+    def paths(self) -> List[List[tuple]]:
+        """Per-stream committed (live, ref) paths, as lists of tuples."""
+        return [list(zip(p[:, 0].tolist(), p[:, 1].tolist())) for p in self._stepper.paths()]
+
+    def pointers(self) -> List[Tuple[int, int, int]]:
+        """Per-stream (chroma_ptr, live_ptr, ref_ptr)."""
+        return self._stepper.pointers()
 
 
 class FusedMultiStreamWTW(DeltaPathDrain, BatchedStatusPolling):
@@ -96,7 +350,7 @@ class FusedMultiStreamWTW(DeltaPathDrain, BatchedStatusPolling):
         if self._w > wtw_insert.MAX_W:
             raise ValueError(
                 f"window of {self._w} frames exceeds the fused kernel's {wtw_insert.MAX_W}-lane layout; "
-                "use MultiStreamWTW for larger windows (not ported yet: ROADMAP.md Queue 1, item 7c)")
+                "use MultiStreamWTW for larger windows")
 
         chromas = self._ref_chromas(refs, ref_chromas)
         self.b = len(chromas)
@@ -168,31 +422,9 @@ class FusedMultiStreamWTW(DeltaPathDrain, BatchedStatusPolling):
         (columns past a stream's count stay zero; the kernel masks them by
         its n_valid)."""
         if self.transfer_dtype == "chroma":
-            active = [(i, int(k)) for i, k in enumerate(ks) if k > 0]
-            out = np.zeros((self.b, 12, self.k_block), self.dtype)
-            if not active:
-                return out
-            frames = np.zeros((sum(k for _, k in active), self.fft_len), self.dtype)
-            row = 0
-            for i, k in active:
-                span = build_span(self.bufs[i], k, self.k_block, self.hop_size, self.fft_len, self.dtype)
-                stride = span.strides[0]
-                frames[row : row + k] = np.lib.stride_tricks.as_strided(
-                    span, shape=(k, self.fft_len), strides=(self.hop_size * stride, stride))
-                row += k
-            cols = host_chroma_frames(frames, n_fft=self.fft_len, overwrite_frames=True)
-            row = 0
-            for i, k in active:
-                out[i, :, :k] = cols[:, row : row + k]
-                row += k
-            return out
-        spans = np.zeros((self.b, self._span_len), self.dtype)
-        for i, k in enumerate(ks):
-            if k > 0:
-                spans[i] = build_span(self.bufs[i], int(k), self.k_block, self.hop_size, self.fft_len, self.dtype)
-        if self.transfer_dtype == "int16":
-            return np.clip(np.round(spans * 32768.0), -32768, 32767).astype(np.int16)
-        return spans
+            return _pack_chroma(self.bufs, ks, self.k_block, self.hop_size, self.fft_len, self.dtype)
+        return _sample_spans(self.bufs, ks, self.k_block, self.hop_size, self.fft_len, self.dtype,
+                             self.transfer_dtype)
 
     def _columns(self, payload: torch.Tensor, ks: np.ndarray) -> torch.Tensor:
         """The block's (B, k_block, F) live columns on the device."""

@@ -268,12 +268,14 @@ class WTWFollower:
     (wtw_live.py:299-307).
 
     The positional parameters are the JAX follower's.  ``engine``: "wtw"
-    (the host engine, windows through kernels #7 and #8 on a card) or
-    "wtw_fused" (the fused kernel, float32; the position comes from the
-    polled status vector, never from a device synchronization);
-    "wtw_async" is not ported yet.  ``interpret`` is recorded by the fused
-    engine and otherwise ignored; ``device`` is where chroma and alignment
-    run."""
+    (the host engine, windows through kernels #7 and #8 on a card),
+    "wtw_async" (``AsyncWTW``: the block step on the device, each due
+    window through kernels #7 and #8, float32 or float64, any window) or
+    "wtw_fused" (the fused kernel, float32, windows up to 128 frames); the
+    device-resident two take the position from the polled status vector,
+    never from a device synchronization.  ``interpret`` is recorded by the
+    fused engine and otherwise ignored; ``device`` is where chroma and
+    alignment run."""
 
     def __init__(
         self,
@@ -304,8 +306,11 @@ class WTWFollower:
 
             self.dtw = WTW(ref_wav, self.params, dtype=dtype, device=self.device)
         elif engine == "wtw_async":
-            raise NotImplementedError("WTWFollower(engine='wtw_async'): AsyncWTW is not ported yet: "
-                                      "ROADMAP.md Queue 1, item 7c")
+            # device-resident stepper: inserts dispatch asynchronously and the
+            # follow position comes from the polled status vector
+            from real_time_audio_sync_tpu_torch.models.wtw_async import AsyncWTW
+
+            self.dtw = AsyncWTW(ref_wav, self.params, dtype=dtype, transfer_dtype=transfer_dtype, device=self.device)
         elif engine == "wtw_fused":
             from real_time_audio_sync_tpu_torch.models.fused_wtw import FusedWTW
 
@@ -340,7 +345,7 @@ class WTWFollower:
         self.latency.stop()
         if status == "stop":
             self.stopped = True
-        if self.engine_name == "wtw_fused":
+        if self.engine_name in ("wtw_async", "wtw_fused"):
             # the score position from the last polled status vector
             lp = self.dtw.last_point
             if lp is None or lp[0] <= 0:
@@ -364,7 +369,7 @@ class WTWFollower:
 
     def stop(self) -> Optional[str]:
         self.recording = False
-        if self.engine_name == "wtw_fused" and self.dtw.flush() == "stop":  # drain in-flight launches
+        if self.engine_name in ("wtw_async", "wtw_fused") and self.dtw.flush() == "stop":  # drain in-flight launches
             self.stopped = True
         if not self.log_dir:
             return None

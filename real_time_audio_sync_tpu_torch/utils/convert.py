@@ -18,6 +18,10 @@ window (rows on 128 lanes), 16 scalars and host path against the port's
 whole live history (n_cap, F), scalars and host path; the
 ``multi_fused_wtw_*`` functions carry a ``FusedMultiStreamWTW``'s stream by
 stream over them, each stream on its own reference length.  The
+``async_wtw_state_*`` functions carry an ``AsyncWTW``'s state (JAX's
+``live_dev`` (F, N), ``px``, ``py`` and ``sc`` int32[8]) against the
+port's ``BlockStepper`` layout, and the ``multi_async_wtw_state_*``
+functions a ``MultiStreamWTW``'s, batched in both packages.  The
 ``online_state_*`` functions carry the online tensor engine's state
 (``models/online_core.OnlineState``: the JAX engine's 14 fields, the
 dense accumulator among them) and the ``multi_online_state_*`` functions a
@@ -255,6 +259,46 @@ def multi_fused_wtw_state_to_jax(live, scalars, host_paths, *, w: int, hop_frame
     per = [fused_wtw_state_to_jax(live[b], scalars[b], host_paths[b], w=w, hop_frames=hop_frames, k_block=k_block)
            for b in range(live.shape[0])]
     return np.stack([p[0] for p in per]), np.stack([p[1] for p in per])[:, None], [p[2] for p in per]
+
+
+def multi_async_wtw_state_from_jax(live_dev, px, py, sc):
+    """A JAX ``MultiStreamWTW``'s state (numpy or JAX arrays: ``live_dev``
+    (B, F, n_buf), ``px`` and ``py`` (B, p_cap), ``sc`` (B, 8) int32) →
+    the port's ``BlockStepper`` state ``(live, px, py, sc)``, CPU tensors:
+    live rows (B, n_buf + 1, F) and path buffers (B, p_cap + 1), each with
+    the last row or column that takes dropped writes (zero)."""
+    live_dev, px, py = np.asarray(live_dev), np.asarray(px, np.int32), np.asarray(py, np.int32)
+    b, f, n_buf = live_dev.shape
+    live = np.zeros((b, n_buf + 1, f), live_dev.dtype)
+    live[:, :n_buf] = live_dev.transpose(0, 2, 1)
+    pad = np.zeros((b, 1), np.int32)
+    return (torch.from_numpy(live), torch.from_numpy(np.concatenate([px, pad], 1)),
+            torch.from_numpy(np.concatenate([py, pad], 1)), torch.from_numpy(np.array(sc, np.int32)))
+
+
+def multi_async_wtw_state_to_jax(live, px, py, sc):
+    """The inverse of :func:`multi_async_wtw_state_from_jax`: the port's
+    ``(live, px, py, sc)`` → JAX's ``(live_dev (B, F, n_buf), px, py (B,
+    p_cap), sc (B, 8))``, numpy."""
+    live = live.detach().cpu().numpy()
+    return (np.ascontiguousarray(live[:, :-1].transpose(0, 2, 1)), px.detach().cpu().numpy()[:, :-1].copy(),
+            py.detach().cpu().numpy()[:, :-1].copy(), sc.detach().cpu().numpy().astype(np.int32))
+
+
+def async_wtw_state_from_jax(live_dev, px, py, sc):
+    """One JAX ``AsyncWTW``'s state (``live_dev`` (F, N), ``px``, ``py``
+    (p_cap,), ``sc`` int32[8]) → the port's ``BlockStepper`` state with
+    B = 1, CPU tensors; an engine given it (``_stepper.set_state``, on its
+    device) goes on to the JAX engine's path."""
+    return multi_async_wtw_state_from_jax(np.asarray(live_dev)[None], np.asarray(px)[None], np.asarray(py)[None],
+                                          np.asarray(sc)[None])
+
+
+def async_wtw_state_to_jax(live, px, py, sc):
+    """The port's B = 1 ``AsyncWTW`` state → one JAX engine's
+    ``(live_dev, px, py, sc)``, numpy; the inverse of
+    :func:`async_wtw_state_from_jax`."""
+    return tuple(a[0] for a in multi_async_wtw_state_to_jax(live, px, py, sc))
 
 
 # the online engine's fields in the JAX OnlineState's order (online_core.py:328-345)

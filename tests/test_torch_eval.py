@@ -118,11 +118,10 @@ def test_align_pair_argument_checks_and_unported_engines(cases):
         tcorpus.align_pair(ref, live, "dtw", mode="fused", device="cpu")
     with pytest.raises(ValueError, match="float32"):
         tcorpus.align_pair(ref, live, "otw", mode="fused", dtype=np.float64, device="cpu")
-    # WTW's insert mode runs AsyncWTW, not ported yet (item 7c)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1, item 7c"):
-        tcorpus.align_pair(ref, live, "wtw", mode="insert", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7c"):  # the ported engines run, then wtw raises
-        tcorpus.run_simple(ref, live, tcorpus.ENGINES, verbose=False, device="cpu")
+    # WTW's insert mode runs AsyncWTW: the host oracle's path, from the same tiled columns
+    insert = tcorpus.align_pair(ref, live, "wtw", mode="insert", device="cpu")
+    np.testing.assert_array_equal(insert.path, tcorpus.align_pair(ref, live, "wtw", mode="oracle", device="cpu").path)
+    assert insert.engine == "wtw" and len(insert.path) > 50
     # the online engines' insert mode runs: in float64, each package on its
     # own frontend, the JAX package's results
     for engine in ("otw", "livenote_v2_diff"):
@@ -130,9 +129,10 @@ def test_align_pair_argument_checks_and_unported_engines(cases):
                      jcorpus.align_pair(ref, live, engine, dtype=np.float64))
     report = tcorpus.CorpusRunner(cases, "livenote_v2_diff", device="cpu").evaluate(verbose=False)
     assert [r.engine for r in report.results] == ["livenote_v2_diff"] * len(PAIRS)
-    # the defaults: every engine whose insert mode is ported; livenote_v2_diff for a pair
+    # the defaults: every engine, as in the JAX package; livenote_v2_diff for a pair
     got = tcorpus.run_simple(ref, live, verbose=False, device="cpu")
-    assert list(got) == list(tcorpus.PORTED_ENGINES) == ["dtw", *ONLINE]
+    assert list(got) == list(tcorpus.ENGINES) == list(jcorpus.ENGINES) == ["dtw", *ONLINE, "wtw"]
+    _same_result(got["wtw"], insert)
     _same_result(got["livenote_v2_diff"], tcorpus.align_pair(ref, live, device="cpu"))
     _same_result(got["dtw"], tcorpus.align_pair(ref, live, "dtw", device="cpu"))
     # the online engines' fused mode is ported, and WTW's fused mode
@@ -248,6 +248,16 @@ def test_corpus_runner_fused_params_and_float64(two_piece_corpus):
         tcorpus.align_pair(ref, live, "livenote_v2_diff", None, np.float64, "fused", device="cpu")
 
 
+def _same_buckets(got: str, want: str, points: float = 1.0) -> None:
+    """Two CLI outputs of one pair: the same lines, each percentage within
+    ``points`` (a WTW path on each package's own frontend)."""
+    g, w = got.splitlines(), want.splitlines()
+    assert len(g) == len(w) and g
+    for a, b in zip(g, w):
+        assert a.split(":")[0] == b.split(":")[0]
+        assert abs(float(a.split(":")[1].split("%")[0]) - float(b.split(":")[1].split("%")[0])) <= points, (a, b)
+
+
 def test_cli_matches_jax(two_piece_corpus, tmp_path, capsys):
     ref, live = _pair(two_piece_corpus, "steady")
     rng = np.random.default_rng(3)
@@ -272,8 +282,12 @@ def test_cli_matches_jax(two_piece_corpus, tmp_path, capsys):
     got = capsys.readouterr().out
     assert jmain(args) == 0
     assert got.splitlines() == capsys.readouterr().out.splitlines() and "[livenote_v2_diff]" in got
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tmain(["--ref", ref, "--live", live, "--engine", "wtw", "--device", "cpu"])
+    # --engine wtw streams through AsyncWTW; each package on its own frontend, the buckets agree
+    assert tmain(["--ref", ref, "--live", live, "--engine", "wtw", "--device", "cpu"]) == 0
+    got = capsys.readouterr().out
+    assert jmain(["--ref", ref, "--live", live, "--engine", "wtw"]) == 0
+    want = capsys.readouterr().out
+    _same_buckets(got, want)
     # an online engine's fused sweep: the runner's own report
     assert tmain(["--corpus", two_piece_corpus, "--engine", "otw", "--mode", "fused", "--device", "cpu"]) == 0
     got = capsys.readouterr().out

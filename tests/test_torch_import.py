@@ -48,7 +48,7 @@ def test_chip_smoke_fails_without_a_card(tmp_path, alone):
     assert '"ok"' not in proc.stdout and '"kernels"' not in proc.stdout
 
 
-@pytest.mark.parametrize("module", ["parallel.wtw_serving"])
+@pytest.mark.parametrize("module", ["parallel.wtw_serving", "models.wtw_async"])
 def test_module_imports_alone_with_jax_blocked(module):
     """A module imported on its own, with JAX blocked, pulls in neither
     JAX nor the JAX package."""
@@ -96,6 +96,8 @@ ENTRY_POINTS = [
     ("models.livenote", "LiveNote"),
     ("models.livenote_v2", "LiveNoteV2"),
     ("parallel.serving", "MultiStreamFollower"),
+    ("models.wtw_async", "AsyncWTW"),
+    ("parallel.wtw_serving", "MultiStreamWTW"),
 ]
 
 
@@ -179,6 +181,17 @@ def _both(name):
         from real_time_audio_sync_tpu_torch.parallel import MultiStreamFollower as T
 
         return J([feats, feats[:, :30]], band), T([feats, feats[:, :30]], band, device="cpu")
+    if name == "AsyncWTW":
+        from real_time_audio_sync_tpu.models.wtw_async import AsyncWTW as J
+        from real_time_audio_sync_tpu_torch.models import AsyncWTW as T
+
+        return J(audio, WP), T(audio, WP, device="cpu")
+    if name == "MultiStreamWTW":
+        from real_time_audio_sync_tpu.parallel import MultiStreamWTW as J
+        from real_time_audio_sync_tpu_torch.parallel import MultiStreamWTW as T
+
+        return J([audio, audio], WP, transfer_dtype="float32"), T([audio, audio], WP, transfer_dtype="float32",
+                                                                  device="cpu")
     if name == "FusedMultiStreamWTW":
         from real_time_audio_sync_tpu.parallel import FusedMultiStreamWTW as J
         from real_time_audio_sync_tpu_torch.parallel import FusedMultiStreamWTW as T
@@ -193,7 +206,7 @@ def _both(name):
 
 @pytest.mark.parametrize("name", ["FusedStreamingEngine", "FusedMultiStreamFollower", "FusedWTW", "WTW",
                                   "FusedMultiStreamWTW", "OnlineTimeWarping", "LiveNote", "LiveNoteV2",
-                                  "MultiStreamFollower"])
+                                  "MultiStreamFollower", "AsyncWTW", "MultiStreamWTW"])
 def test_public_names_match_the_jax_objects(name):
     """The public ``dir()`` names (which hold the public ``vars()``) of an
     object built in both packages differ only by ``NAME_DIFFERENCES``; the

@@ -16,6 +16,7 @@ compared in float32 too, where it agrees on every case.
 """
 
 import os
+import re
 
 import numpy as np
 import pytest
@@ -69,8 +70,8 @@ def jax_features(monkeypatch):
             np.array(jchroma.wav_to_chroma(path, dtype=_np_dtype(dtype)))))
     monkeypatch.setattr(tcorpus, "wav_to_chroma_diff", lambda path, dtype=np.float32, *, device: torch.from_numpy(
         np.array(jchroma.wav_to_chroma_diff(path, dtype=_np_dtype(dtype)))))
-    monkeypatch.setattr(tchroma, "chroma_frames", lambda frames: torch.from_numpy(
-        np.array(jchroma.chroma_frames(jnp.asarray(frames.numpy())))))
+    monkeypatch.setattr(tchroma, "chroma_frames", lambda frames, *args: torch.from_numpy(
+        np.array(jchroma.chroma_frames(jnp.asarray(frames.numpy()), *args))))
 
 
 def _same_result(got, want):
@@ -113,9 +114,12 @@ def test_corpus_runner_default_is_jaxs(cases, jax_features):
 
 def test_cli_defaults_are_jaxs(cases, jax_features, capsys):
     """``--corpus`` without ``--engine`` sweeps livenote_v2_diff, as the JAX
-    CLI does; ``--ref/--live`` without it runs the engines whose insert mode
-    is ported, each line the JAX CLI's line for that engine (the JAX CLI
-    also runs "wtw", AsyncWTW, which the port does not have yet)."""
+    CLI does; ``--ref/--live`` without it runs every engine, as the JAX CLI
+    does: each line the JAX CLI's line for that engine, and "wtw"'s
+    buckets (AsyncWTW in the insert mode, on the JAX frontend's features
+    in tiles of 8 frames where JAX extracts a block's frames in one
+    product) within a point of JAX's.  On the parent the default was the
+    engines without "wtw"."""
     from real_time_audio_sync_tpu.eval.__main__ import main as jmain
     from real_time_audio_sync_tpu_torch.eval.__main__ import main as tmain
 
@@ -126,9 +130,14 @@ def test_cli_defaults_are_jaxs(cases, jax_features, capsys):
     ref, live = _pair(cases, "steady")
     assert tmain(["--ref", ref, "--live", live, "--dtype", "float64", "--device", "cpu"]) == 0
     lines = capsys.readouterr().out.splitlines()
-    assert [line.split(":")[0].strip() for line in lines] == list(tcorpus.PORTED_ENGINES)
-    want = jcorpus.run_simple(ref, live, tcorpus.PORTED_ENGINES, dtype=np.float64)
-    assert lines == capsys.readouterr().out.splitlines() and len(want) == len(lines)
+    assert [line.split(":")[0].strip() for line in lines] == list(tcorpus.ENGINES) == list(jcorpus.ENGINES)
+    assert jmain(["--ref", ref, "--live", live, "--dtype", "float64"]) == 0
+    want = capsys.readouterr().out.splitlines()
+    assert lines[:-1] == want[:-1] and len(want) == len(lines)
+    got_wtw, want_wtw = (dict(re.findall(r"(>\d+b)=\s*([\d.]+)%", line)) for line in (lines[-1], want[-1]))
+    assert len(got_wtw) == len(want_wtw) == 4
+    for bucket, pct in got_wtw.items():
+        assert abs(float(pct) - float(want_wtw[bucket])) <= 1.0, (lines[-1], want[-1])
 
 
 @pytest.fixture(scope="module")

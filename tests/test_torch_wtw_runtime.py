@@ -137,8 +137,17 @@ def test_host_follower_reads_its_path(cases):
         if events:
             assert (events[-1].live_frame, events[-1].ref_frame) == f.path[-1]
     assert events and f.stop() is None
-    with pytest.raises(NotImplementedError, match="item 7c"):
-        WTWFollower(ref, engine="wtw_async", device="cpu")
+    # engine="wtw_async": the position from the polled status, the path the host engine's
+    a = WTWFollower(ref, live, tcorpus.DEFAULT_WTW_PARAMS, engine="wtw_async", device="cpu")
+    a.start()
+    a.dtw.poll_min_interval = 0.0
+    async_events = []
+    for s in range(0, 60 * 2048, 2048):
+        async_events += a.receive_audio(pcm[s : s + 2048])
+        if async_events:
+            assert (async_events[-1].live_frame, async_events[-1].ref_frame) == a.dtw.path[-1]
+    assert async_events and a.stop() is None
+    assert a.path == f.path
     with pytest.raises(ValueError, match="transfer_dtype"):
         WTWFollower(ref, engine="wtw", transfer_dtype="int16", device="cpu")
     with pytest.raises(ValueError, match="float32-only"):
@@ -162,15 +171,27 @@ def test_align_pair_fused_equals_oracle_and_scores_as_jax(cases, name):
 
 
 def test_wtw_modes_that_wait_raise(cases):
+    """The modes that waited for AsyncWTW run: the insert mode, and the
+    fused mode above the fused kernel's 128-frame windows, each equal to
+    ``mode="oracle"``; ``CorpusRunner(engine="wtw", mode="insert")`` runs
+    the pairs in turn, each equal to its ``align_pair``; "wtw" is among
+    ``run_simple``'s default engines."""
     ref, live = _pair(cases, "steady")
-    with pytest.raises(NotImplementedError, match="item 7c"):
-        tcorpus.align_pair(ref, live, "wtw", mode="insert", device="cpu")
-    wide = dict(tcorpus.DEFAULT_WTW_PARAMS, dtw_win_size=4096 * 80)
-    with pytest.raises(NotImplementedError, match="item 7c"):
-        tcorpus.align_pair(ref, live, "wtw", wide, mode="fused", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7c"):
-        tcorpus.CorpusRunner(cases, "wtw", mode="insert", device="cpu")
-    assert "wtw" not in tcorpus.PORTED_ENGINES
+    insert = tcorpus.align_pair(ref, live, "wtw", mode="insert", device="cpu")
+    oracle = tcorpus.align_pair(ref, live, "wtw", mode="oracle", device="cpu")
+    assert len(insert.path) > 50
+    np.testing.assert_array_equal(insert.path, oracle.path)
+    wide = dict(tcorpus.DEFAULT_WTW_PARAMS, dtw_win_size=4096 * 65, dtw_hop_size=2048 * 20)  # w = 130
+    jref, jlive = _pair(cases, "jittered")
+    fused = tcorpus.align_pair(jref, jlive, "wtw", wide, mode="fused", device="cpu")
+    assert len(fused.path) > 50
+    np.testing.assert_array_equal(fused.path, tcorpus.align_pair(jref, jlive, "wtw", wide, mode="oracle",
+                                                                 device="cpu").path)
+    report = tcorpus.CorpusRunner(cases, "wtw", mode="insert", device="cpu").evaluate(verbose=False)
+    assert len(report.results) == len(PAIRS)
+    for r in report.results:
+        np.testing.assert_array_equal(r.path, tcorpus.align_pair(r.ref_wav, r.live_wav, "wtw", device="cpu").path)
+    assert "wtw" in tcorpus.ENGINES
 
 
 def test_raw_audio_memo_has_its_own_cap(cases, monkeypatch):

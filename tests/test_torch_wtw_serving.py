@@ -30,7 +30,7 @@ from real_time_audio_sync_tpu_torch.eval import corpus as tcorpus, synthetic  # 
 from real_time_audio_sync_tpu_torch.features.chroma import chroma_frames_tiled, chroma_spans_tiled, frame_span  # noqa: E402
 from real_time_audio_sync_tpu_torch.models import FusedWTW  # noqa: E402
 from real_time_audio_sync_tpu_torch.models.wtw import SampleFIFO  # noqa: E402
-from real_time_audio_sync_tpu_torch.parallel import FusedMultiStreamWTW  # noqa: E402
+from real_time_audio_sync_tpu_torch.parallel import FusedMultiStreamWTW, MultiStreamWTW  # noqa: E402
 from real_time_audio_sync_tpu_torch.utils import convert  # noqa: E402
 
 from tests.test_pallas_wtw import WP, _aligned_chunks, _run, _synth  # noqa: E402
@@ -154,7 +154,7 @@ def test_contract_and_what_raises():
     assert _multi([ref], transfer_dtype="auto").transfer_dtype == "float32"  # no link to probe on the CPU
     with pytest.raises(NotImplementedError, match="item 9"):
         _multi([ref], mesh=object())
-    with pytest.raises(ValueError, match="item 7c"):
+    with pytest.raises(ValueError, match="use MultiStreamWTW"):
         FusedMultiStreamWTW([ref], dict(WP, dtw_win_size=4096 * 80), device="cpu")
     with pytest.raises(ValueError, match="at least one stream"):
         _multi([])
@@ -252,6 +252,14 @@ def test_corpus_sweep_is_one_multi_stream_run_equal_to_solo_pairs(cases, monkeyp
         np.testing.assert_array_equal(r.path, solo.path)
         for t in (1, 3, 5, 10):
             assert abs(r.score.pct_off_beats[t] - j.score.pct_off_beats[t]) <= BUCKET_POINTS, (r.live_wav, t)
-    with pytest.raises(NotImplementedError, match="item 7c"):
-        tcorpus.CorpusRunner(cases, "wtw", dict(tcorpus.DEFAULT_WTW_PARAMS, dtw_win_size=4096 * 80), mode="fused",
-                             device="cpu").evaluate(verbose=False)
+    # above the fused kernel's 128-frame windows the sweep is one MultiStreamWTW run, each pair its
+    # solo align_pair (AsyncWTW)
+    wide = dict(tcorpus.DEFAULT_WTW_PARAMS, dtw_win_size=4096 * 65)  # w = 130
+    wide_runs = []
+    monkeypatch.setattr(MultiStreamWTW, "flush", lambda self, _f=MultiStreamWTW.flush: wide_runs.append(self.b) or _f(self))
+    report = tcorpus.CorpusRunner(cases, "wtw", wide, mode="fused", device="cpu").evaluate(verbose=False)
+    assert wide_runs == [len(PAIRS)] and runs == [len(PAIRS)]
+    assert sum(len(r.path) for r in report.results) > 50
+    for r in report.results:
+        np.testing.assert_array_equal(r.path, tcorpus.align_pair(r.ref_wav, r.live_wav, "wtw", wide, mode="fused",
+                                                                 device="cpu").path)
