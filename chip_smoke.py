@@ -246,6 +246,27 @@ Phases, each raising on failure (the process then exits non-zero):
    (d) and (e) run each recording's first ``ASYNC_CUT_HOPS`` hops (a cut
    in depth, to fit the phase's 60 s).
 
+15. the live app, checkpoint and resume, and corpus alignment (no new
+   kernel; kernels #1 and #3-#9 reached through new entry points) —
+   (a) ``python -m real_time_audio_sync_tpu_torch.streaming --engine otw``
+   as a process on ``sonata_allegro`` _00 against _01 cut to its first
+   ``APP_HOPS`` hops (the tensor engine, no hand-written kernel): its field
+   log equals an in-process ``follow_live(device="cuda")``'s; then
+   ``follow_live(engine="wtw")`` (the host ``WTW``, w = 100), with kernels
+   #7 and #8 launched once a window;
+   (b) every checkpoint pair of ``utils/checkpoint`` on the card: half a
+   run, save, load into a fresh CUDA engine, the rest — ``FusedStreamingEngine``
+   in both layouts (#1, #4), ``FusedMultiStreamFollower`` with 4 streams in
+   both (#5, #6), ``FusedWTW`` (#9), ``AsyncWTW`` and ``MultiStreamWTW``
+   (#7/#8 over a batch), the host ``WTW`` (#7/#8) and ``OnlineTimeWarping``:
+   each equals its uninterrupted run at tolerance 0, and its kernel's
+   counter advances after the load; a card checkpoint resumes in a
+   ``device="cpu"`` engine to the card's path;
+   (c) ``parallel.batched_set_live`` over the 18 sweep pairs' chroma: one
+   launch of kernel #3, paths equal to ``pallas_batched_set_live``'s; its
+   dense route on 3 cut pairs: float32 equal to the kernel's paths, float64
+   on the card equal to float64 on the CPU.
+
 The builds run in parallel (one ``nvcc`` per source).  Then each phase's
 seconds, one JSON line of per-kernel results, and last ``{"ok": true,
 "device": {...}}``.  ``--band-times [TREE]`` only times the two band
@@ -445,6 +466,20 @@ ASYNC_SWEEP_TRACE_CHUNKS = 400
 ASYNC_CUT_HOPS = 800
 # --band-times: the batched DP's (B, w), float32
 WAVEFRONT_BATCH_TIMED = ((18, 100), (64, 200))
+# phase 15: the app's live recording cut to its first APP_HOPS hops (the
+# tensor engine takes ~15 ms a hop on the card, PERF.md §6); each checkpoint
+# case's run of 2·RESUME_HALF hops (columns), RESUME_ONLINE_HOPS for the
+# tensor engine, RESUME_STREAMS streams a batched engine; the card-to-CPU
+# resume's RESUME_CPU_TAIL columns on the plain version; the dense route's
+# DENSE_PAIRS sweep pairs cut to DENSE_FRAMES (reference, live) frames
+APP_HOPS = 200
+RESUME_HALF = 300
+RESUME_ONLINE_HOPS = 120
+RESUME_STREAMS = 4
+RESUME_CPU_COLS = 400
+RESUME_CPU_TAIL = 96
+DENSE_PAIRS = 3
+DENSE_FRAMES = (300, 360)
 
 
 def log(msg: str) -> None:
@@ -3344,14 +3379,14 @@ def phase_wtw_serving(device, root: str, card: str):
                  "append_only_ms": idle_ms, "serving_launches": launches, "sweep_launches": sweep_launches}
 
 
-def no_kernel_launched(what: str) -> None:
+def no_kernel_launched(what: str, phase: str = "13") -> None:
     """The online tensor engines launch no hand-written kernel: raise unless
     the K-insert and set_live kernels' counters are still 0."""
     from real_time_audio_sync_tpu_torch.ops import otw_insert, otw_set_live
 
     counts = (otw_insert.launches, otw_insert.multi_launches, otw_set_live.launches)
     if any(counts):
-        raise AssertionError(f"phase 13 [{what}]: hand-written kernels launched {counts}")
+        raise AssertionError(f"phase {phase} [{what}]: hand-written kernels launched {counts}")
 
 
 def reset_kernel_counts() -> None:
@@ -3949,6 +3984,261 @@ def phase_async_corpus(device, root: str, card: str):
                       "bytes_a_stream": bytes_a_stream}
 
 
+def field_log_path(log_dir: str):
+    """The path of the one field log in ``log_dir``."""
+    from real_time_audio_sync_tpu_torch.eval.logs import parse_field_log
+
+    (name,) = os.listdir(log_dir)
+    return parse_field_log(os.path.join(log_dir, name)).path
+
+
+def phase_app(device, root: str, card: str) -> dict:
+    """Phase 15 (a): the live app on the card, as a user runs it."""
+    import torch
+
+    from real_time_audio_sync_tpu_torch.ops import wavefront
+    from real_time_audio_sync_tpu_torch.streaming.app import follow_live
+
+    out = os.path.join(root, "phase15")
+    ref_wav = os.path.join(root, "sonata_allegro", "sonata_allegro_00.wav")
+    live_wav = cut_recording(os.path.join(root, "sonata_allegro", "sonata_allegro_01.wav"), APP_HOPS, out)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "real_time_audio_sync_tpu_torch.streaming", "--ref", ref_wav,
+                           "--live", live_wav, "--engine", "otw", "--log-dir", os.path.join(out, "app")],
+                          cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True, text=True, timeout=600)
+    app_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"phase 15 (a): the app exited {proc.returncode}: {proc.stderr[-3000:]}")
+    app_path = field_log_path(os.path.join(out, "app"))
+    reset_kernel_counts()
+    t0 = time.perf_counter()
+    f = follow_live(ref_wav, live_wav, engine="otw", log_dir=os.path.join(out, "otw"), quiet=True, device=device)
+    torch.cuda.synchronize()
+    otw_s = time.perf_counter() - t0
+    no_kernel_launched("a: follow_live otw", phase="15")
+    if field_log_path(os.path.join(out, "otw")) != app_path or len(app_path) < APP_HOPS // 2:
+        raise AssertionError(f"phase 15 (a): the app's field log ({len(app_path)} points) != follow_live's")
+    log(f"phase 15 (a) [{card}]: python -m real_time_audio_sync_tpu_torch.streaming --engine otw on _01's first "
+        f"{APP_HOPS} hops against _00: {app_s:.1f} s as a process (start-up included), field log of "
+        f"{len(app_path)} points == follow_live(device='cuda')'s ({otw_s:.2f} s, "
+        f"{otw_s / APP_HOPS * 1e3:.2f} ms a hop, no hand-written kernel launched); mic {f.meter.db:.1f} dB")
+    wavefront.dp_launches = wavefront.backtrack_launches = 0
+    t0 = time.perf_counter()
+    f = follow_live(ref_wav, live_wav, engine="wtw", log_dir=os.path.join(out, "wtw"), quiet=True, device=device)
+    torch.cuda.synchronize()
+    wtw_s = time.perf_counter() - t0
+    launches = (wavefront.dp_launches, wavefront.backtrack_launches)
+    path = field_log_path(os.path.join(out, "wtw"))
+    if launches[0] == 0 or launches[0] != launches[1] or path != [tuple(int(v) for v in p) for p in f.path] or not path:
+        raise AssertionError(f"phase 15 (a): --engine wtw launched {launches}, field log of {len(path)} points")
+    log(f"phase 15 (a) [{card}]: follow_live(engine='wtw', device='cuda') (the host WTW, w = 100): {wtw_s:.2f} s, "
+        f"{launches[0]} DP and {launches[1]} backtrack launches (kernels #7 and #8, one a window), field log of "
+        f"{len(path)} points")
+    return {"app_s": app_s, "app_points": len(app_path), "wtw_windows": launches[0]}
+
+
+def resume_case(name: str, make, feed, result, n: int, half: int, save, load, counter, out: str) -> int:
+    """Half a run, save, load into a fresh engine, run the rest: raise unless
+    the result equals the uninterrupted run's, and, where ``counter`` reads
+    the engine's kernel counter, unless the kernel launched after the load.
+    Returns the launches after the load."""
+    import torch
+
+    whole = make()
+    feed(whole, 0, n)
+    want = result(whole)
+    first = make()
+    feed(first, 0, half)
+    ckpt = os.path.join(out, f"{name}.npz")
+    save(first, ckpt)
+    resumed = make()
+    load(resumed, ckpt)
+    before = counter() if counter else 0
+    feed(resumed, half, n)
+    got = result(resumed)
+    torch.cuda.synchronize()
+    launched = counter() - before if counter else 0
+    if got != want:
+        raise AssertionError(f"phase 15 (b) [{name}]: the resumed run differs from the uninterrupted one")
+    if counter and launched <= 0:
+        raise AssertionError(f"phase 15 (b) [{name}]: the kernel did not launch after the load")
+    return launched
+
+
+def phase_checkpoints(device, root: str, card: str) -> dict:
+    """Phase 15 (b): every checkpoint pair on the card; returns each
+    kernel's launches after the loads."""
+    import numpy as np
+    import torch
+
+    from real_time_audio_sync_tpu_torch.features.chroma import wav_to_chroma
+    from real_time_audio_sync_tpu_torch.models import AsyncWTW, FusedStreamingEngine, FusedWTW, OnlineTimeWarping
+    from real_time_audio_sync_tpu_torch.models.wtw import WTW
+    from real_time_audio_sync_tpu_torch.ops import otw_insert, wavefront, wtw_insert
+    from real_time_audio_sync_tpu_torch.parallel import FusedMultiStreamFollower, MultiStreamWTW
+    from real_time_audio_sync_tpu_torch.utils import checkpoint as ck
+    from real_time_audio_sync_tpu_torch.utils.wavio import load_wav
+
+    out = os.path.join(root, "phase15", "checkpoints")
+    os.makedirs(out, exist_ok=True)
+    piece = os.path.join(root, "sonata_allegro", "sonata_allegro_0")
+    ref_wav = piece + "0.wav"
+    ref = wav_to_chroma(ref_wav, device=device)
+    lives = [wav_to_chroma(piece + f"{i}.wav", device=device)[:, : 2 * RESUME_HALF] for i in (1, 2)]
+    host_lives = [x.T.cpu().numpy() for x in lives]
+    pcms = [load_wav(piece + f"{i}.wav")[0] for i in (1, 2)]
+    n = min(2 * RESUME_HALF, *(x.shape[1] for x in lives))
+    bufs = [[p[h * 2048 : (h + 1) * 2048] for h in range(n)] for p in pcms]
+
+    def fused(long_ref):
+        def feed(e, lo, hi):
+            for s in range(lo, hi, 8):
+                e.insert_block_nowait(lives[0][:, s : min(s + 8, hi)])
+        return (lambda: FusedStreamingEngine(ref, PARAMS, k_block=8, long_ref=long_ref, device=device), feed,
+                lambda e: (e.flush(), e.path_array.tolist())[1])
+
+    def multi(long_ref):
+        def feed(f, lo, hi):
+            for t in range(lo, hi):
+                act = np.arange(RESUME_STREAMS) <= t  # stream i joins at hop i
+                f.feed(np.stack([host_lives[i % 2][t - i if t >= i else 0] for i in range(RESUME_STREAMS)]), act)
+        return (lambda: FusedMultiStreamFollower(ref, PARAMS, RESUME_STREAMS, k_block=8, long_ref=long_ref,
+                                                 device=device), feed,
+                lambda f: (f.flush(), [p.tolist() for p in f.paths()])[1])
+
+    def solo_audio(e, lo, hi):
+        for b in bufs[0][lo:hi]:
+            e.insert(b)
+
+    def wtw_result(e):
+        if hasattr(e, "flush"):
+            e.flush()
+        ptrs = e.pointers if hasattr(e, "pointers") else (e.chroma_ptr, e.live_ptr, e.ref_ptr)
+        return e.path, tuple(int(v) for v in ptrs)
+
+    def multi_audio(m, lo, hi):
+        for h in range(lo, hi):
+            m.insert([bufs[i % 2][h] for i in range(RESUME_STREAMS)])
+
+    def multi_wtw_result(m):
+        m.flush()
+        return [np.asarray(p).tolist() for p in m.paths()], m.pointers()
+
+    def online_feed(e, lo, hi):
+        for t in range(lo, hi):
+            e.insert(lives[0][:, t])
+
+    wtw_kw = {"transfer_dtype": "float32", "device": device}
+    cases = {
+        # name: (make, feed, result, steps, save, load, kernel, counter)
+        "fused": (*fused(False), n, ck.save_fused_state, ck.load_fused_state, "otw_insert_block",
+                  lambda: otw_insert.launches),
+        "fused_long_ref": (*fused(True), n, ck.save_fused_state, ck.load_fused_state, "otw_insert_block_long",
+                           lambda: otw_insert.delta_launches),
+        "multi_windowed": (*multi(None), n, ck.save_multi_stream_state, ck.load_multi_stream_state,
+                           "otw_multi_insert_block_long", lambda: otw_insert.multi_delta_launches),
+        "multi_whole": (*multi(False), n, ck.save_multi_stream_state, ck.load_multi_stream_state,
+                        "otw_multi_insert_block", lambda: otw_insert.multi_launches),
+        "fused_wtw": (lambda: FusedWTW(ref_wav, LIVE_APP_WTW, k_block=8, **wtw_kw), solo_audio, wtw_result, n,
+                      ck.save_fused_wtw_state, ck.load_fused_wtw_state, "wtw_insert_block",
+                      lambda: wtw_insert.launches),
+        "async_wtw": (lambda: AsyncWTW(ref_wav, LIVE_APP_WTW, k_block=8, **wtw_kw), solo_audio, wtw_result, n,
+                      ck.save_async_wtw_state, ck.load_async_wtw_state, "wavefront_dp_batched",
+                      lambda: wavefront.dp_batched_launches),
+        "multi_wtw": (lambda: MultiStreamWTW([ref_wav] * RESUME_STREAMS, LIVE_APP_WTW, **wtw_kw), multi_audio,
+                      multi_wtw_result, n,
+                      ck.save_multi_wtw_state, ck.load_multi_wtw_state, "wavefront_backtrack_batched",
+                      lambda: wavefront.backtrack_batched_launches),
+        "wtw": (lambda: WTW(ref_wav, LIVE_APP_WTW, device=device), solo_audio, wtw_result, n, ck.save_wtw_state,
+                ck.load_wtw_state, "wavefront_dp", lambda: wavefront.dp_launches),
+        "otw": (lambda: OnlineTimeWarping(ref, PARAMS, device=device), online_feed,
+                lambda e: e.path, RESUME_ONLINE_HOPS, ck.save_state, ck.load_state, None, None),
+    }
+    resumed = {}
+    for name, (make, feed, result, steps, save, load, kernel, counter) in cases.items():
+        t0 = time.perf_counter()
+        half = steps // 2 // 8 * 8  # a whole number of 8-column launches before the save
+        launched = resume_case(name, make, feed, result, steps, half, save, load, counter, out)
+        if kernel:
+            resumed[kernel] = resumed.get(kernel, 0) + launched
+        log(f"phase 15 (b) [{card}]: {name}: saved after {half} of {steps} "
+            f"steps, loaded into a fresh engine on the card, resumed == uninterrupted; {launched} launches of "
+            f"{kernel or 'no hand-written kernel'} after the load; {time.perf_counter() - t0:.2f} s")
+    # a checkpoint saved on the card resumes in a CPU engine (the plain version) to the same path
+    ckpt = os.path.join(out, "fused_to_cpu.npz")
+    whole = FusedStreamingEngine(ref, PARAMS, k_block=8, device=device)
+    for s in range(0, RESUME_CPU_COLS, 8):
+        whole.insert_block_nowait(lives[0][:, s : s + 8])
+    whole.flush()
+    card_eng = FusedStreamingEngine(ref, PARAMS, k_block=8, device=device)
+    cut = RESUME_CPU_COLS - RESUME_CPU_TAIL
+    card_eng.insert_block_nowait(lives[0][:, :cut])
+    ck.save_fused_state(card_eng, ckpt)
+    cpu = FusedStreamingEngine(ref.cpu(), PARAMS, k_block=8, device="cpu")
+    ck.load_fused_state(cpu, ckpt)
+    tail = lives[0][:, cut:RESUME_CPU_COLS].cpu()
+    for s in range(0, tail.shape[1], 8):
+        cpu.insert_block_nowait(tail[:, s : s + 8])
+    cpu.flush()
+    if not np.array_equal(cpu.path_array, whole.path_array):
+        raise AssertionError("phase 15 (b): the card's checkpoint resumed on the CPU differs from the card's run")
+    log(f"phase 15 (b) [{card}]: a FusedStreamingEngine checkpoint saved on the card after {cut} columns, resumed "
+        f"in a device='cpu' engine (the plain version) for {RESUME_CPU_TAIL} more: path == the card's "
+        f"({len(whole.path_array)} points)")
+    return resumed
+
+
+def phase_corpus_batch(device, root: str, card: str) -> int:
+    """Phase 15 (c): ``parallel/corpus.batched_set_live`` over the 18-pair
+    sweep's chroma (kernel #3, one launch), and its dense route; returns
+    the kernel's launches."""
+    import numpy as np
+    import torch
+
+    from real_time_audio_sync_tpu_torch.eval import corpus, synthetic
+    from real_time_audio_sync_tpu_torch.ops import otw_set_live
+    from real_time_audio_sync_tpu_torch.parallel import batched_set_live, pad_pairs
+
+    # the sweep's 18 pairs (phase 9's concert recordings lie under root too)
+    pairs = [p for p in corpus.corpus_pairs(root) if os.path.basename(os.path.dirname(p[0])) in synthetic.FULL_PIECES]
+    refs = [corpus._cached_chroma(r, np.float32, device) for r, _ in pairs]
+    lives = [corpus._cached_chroma(l, np.float32, device) for _, l in pairs]
+    padded = pad_pairs([r.cpu().numpy() for r in refs], [l.cpu().numpy() for l in lives])
+    torch.cuda.synchronize()
+    otw_set_live.launches = 0
+    t0 = time.perf_counter()
+    paths, mean = batched_set_live(*padded, SWEEP_BAND, device=device)
+    torch.cuda.synchronize()
+    wall, launches = time.perf_counter() - t0, otw_set_live.launches
+    want = otw_set_live.pallas_batched_set_live(refs, lives, SWEEP_BAND, device=device)
+    if launches != 1 or len(paths) != len(pairs) or any(not np.array_equal(p, w[0]) for p, w in zip(paths, want)):
+        raise AssertionError(f"phase 15 (c): batched_set_live made {launches} launches, paths != "
+                             "pallas_batched_set_live's")
+    if mean.device.type != torch.device(device).type or mean.dtype != torch.float32 or abs(float(mean) - np.mean([len(p) for p in paths])) > 1e-3:
+        raise AssertionError(f"phase 15 (c): mean path length {mean}")
+    log(f"phase 15 (c) [{card}]: batched_set_live over the {len(pairs)} sweep pairs (padded to "
+        f"{padded[0].shape[2]} x {padded[1].shape[2]} frames): one launch of kernel #3, {wall:.3f} s with the "
+        f"host copies, paths == pallas_batched_set_live's, mean path length {float(mean):.1f}")
+    n, t = DENSE_FRAMES
+    cut = pad_pairs([r[:, :n].cpu().numpy() for r in refs[:DENSE_PAIRS]],
+                    [l[:, :t].cpu().numpy() for l in lives[:DENSE_PAIRS]])
+    kernel, _ = batched_set_live(*cut, SWEEP_BAND, device=device)
+    t0 = time.perf_counter()
+    dense32, _ = batched_set_live(*cut, SWEEP_BAND, backend="dense", device=device)
+    dense64, _ = batched_set_live(*cut, SWEEP_BAND, dtype=np.float64, device=device)
+    dense_s = time.perf_counter() - t0
+    cpu64, _ = batched_set_live(*cut, SWEEP_BAND, dtype=np.float64, device="cpu")
+    same = [np.array_equal(a, b) for a, b in zip(dense32, kernel)]
+    same64 = [np.array_equal(a, b) for a, b in zip(dense64, cpu64)]
+    if not all(same) or not all(same64):
+        raise AssertionError(f"phase 15 (c): dense float32 == kernel {same}, dense float64 card == CPU {same64}")
+    agree = sum(np.array_equal(a, b) for a, b in zip(dense64, kernel))
+    log(f"phase 15 (c) [{card}]: the dense route on {DENSE_PAIRS} pairs cut to {n} x {t} frames: float32 == the "
+        f"kernel's paths, float64 on the card == float64 on the CPU, float64 == the float32 kernel on {agree} of "
+        f"{DENSE_PAIRS} pairs; {dense_s:.2f} s for the two dense batches on the card")
+    return launches
+
+
 def ptxas_report(text: str) -> dict:
     """{mangled kernel name: (registers, stack bytes, spill store bytes,
     spill load bytes)} from nvcc's ``--ptxas-options=-v`` output."""
@@ -4117,6 +4407,15 @@ def main() -> int:
             follow_launches, async_extra = timed("14", phase_async_follower, device, root, card)
             corpus_launches, sweep_extra = timed("14", phase_async_corpus, device, root, card)
         log(f"phase 14: {phase_s['14']:.1f} s in all")
+        with warnings.catch_warnings():
+            from real_time_audio_sync_tpu_torch.models.wtw import WTWLongReferenceWarning
+
+            warnings.simplefilter("ignore", WTWLongReferenceWarning)
+            log(card)
+            app_extra = timed("15", phase_app, device, root, card)
+            resumed = timed("15", phase_checkpoints, device, root, card)
+            batch_launches = timed("15", phase_corpus_batch, device, root, card)
+        log(f"phase 15: {phase_s['15']:.1f} s in all")
 
     # "ms" is each kernel's device time per launch (profiler; the CUDA-event
     # time when the trace holds none); otw_insert_block's at k_block 8,
@@ -4153,6 +4452,12 @@ def main() -> int:
             kernels[-1].update(multi_wtw_extra)
         if name in batched_extra:  # phase 14: the batch timed, B solo launches beside it, the cells' figures
             kernels[-1].update(batched_extra[name])
+        if name in resumed:  # phase 15 (b): the kernel's launches after the checkpoint loads
+            kernels[-1]["resume_launches"] = resumed[name]
+        if name == "otw_batched_set_live":  # phase 15 (c): parallel/corpus.batched_set_live over the sweep
+            kernels[-1]["corpus_batch_launches"] = batch_launches
+        if name == "wavefront_dp":  # phase 15 (a): the app's --engine wtw windows
+            kernels[-1]["app"] = app_extra
     order = sorted(phase_s, key=lambda name: int(name.split("-")[0]))
     log("seconds a phase: " + ", ".join(f"{name} {phase_s[name]:.1f}" for name in order))
     log(f"total {time.perf_counter() - t_start:.1f} s")

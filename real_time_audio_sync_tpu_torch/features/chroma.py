@@ -339,3 +339,36 @@ def wav_to_chroma_col(wav_buf, dtype=torch.float32, *, device="cuda") -> torch.T
         raise ValueError(f"wav_to_chroma_col takes {FFT_LEN} samples, got {buf.shape[-1]}")
     frames = buf.to(device=device, dtype=torch_dtype(dtype)).reshape(1, FFT_LEN)
     return chroma_frames(frames)[:, 0]
+
+
+def create_stft(wav, dtype=torch.float32, *, device="cuda") -> np.ndarray:
+    """Reference ``create_stft`` (chroma.py:44-65): the complex one-sided
+    STFT, (1 + fft_len/2, T), as a numpy array.  Same centered-pad and
+    truncation as the pipeline; the framing and the two DFT matmuls
+    (``re − i·im``) run on ``device``."""
+    wav_t = torch.as_tensor(np.asarray(wav))
+    t = num_frames(wav_t.shape[0])
+    if t <= 0:
+        return np.zeros((FFT_LEN // 2 + 1, 0), complex)
+    dt = torch_dtype(dtype)
+    win, dft_cos, dft_sin, _ = frontend_constants(FFT_LEN, FS, dt, device=device)
+    wav_t = wav_t.to(device=win.device, dtype=dt)
+    x = torch.cat([torch.zeros(FFT_LEN // 2, dtype=dt, device=win.device), wav_t])
+    wf = frame_span(x, t, FFT_LEN, HOP_SIZE) * win
+    re = (wf @ dft_cos).cpu().numpy()
+    im = (wf @ dft_sin).cpu().numpy()
+    return (re - 1j * im).T  # (K, T)
+
+
+def create_chroma(ft, normalize: bool = True, dtype=torch.float32, *, device="cuda") -> np.ndarray:
+    """Reference ``create_chroma`` (chroma.py:67-75): one-sided spectrum →
+    power → filterbank projection on ``device`` → optional per-frame L2
+    normalization; a (12, T) numpy array."""
+    dt = torch_dtype(dtype)
+    _, _, _, fb_t = frontend_constants(FFT_LEN, FS, dt, device=device)
+    spec = torch.from_numpy(np.abs(np.asarray(ft)) ** 2).to(device=fb_t.device, dtype=dt)
+    raw = (spec.T @ fb_t).T  # (12, T)
+    if normalize:
+        norm = torch.sqrt(torch.sum(raw * raw, dim=0, keepdim=True))
+        raw = raw / torch.where(norm < torch.finfo(dt).tiny, torch.ones_like(norm), norm)
+    return raw.cpu().numpy()

@@ -27,7 +27,10 @@ functions a ``MultiStreamWTW``'s, batched in both packages.  The
 dense accumulator among them) and the ``multi_online_state_*`` functions a
 ``MultiStreamFollower``'s, whose fields carry a leading stream axis in
 both packages.  The reference features are not state (each engine builds
-them from the same chroma).
+them from the same chroma), but a checkpoint holds them to reject a
+restore against another reference: :func:`otw_ref_to_jax` and
+:func:`wtw_refs_to_jax` give them in the JAX engines' layouts
+(``utils/checkpoint`` writes and compares that layout in both packages).
 """
 
 from __future__ import annotations
@@ -89,6 +92,40 @@ def otw_state_to_jax(window, live, path_x, path_y, scalars, *, c: int, n: int, f
     px[: path_x.shape[0]] = host(path_x)
     py[: path_y.shape[0]] = host(path_y)
     return w, live_t, px, py, host(scalars).astype(np.int32)
+
+
+def otw_ref_to_jax(ref_rows, *, c: int, k_block: int, loop_iters: int, long_ref: bool) -> np.ndarray:
+    """The port's K-insert reference rows (``OTWState.ref`` (c+N, F), or
+    ``MultiOTWState.ref`` (R, c+N_max, F)) → the JAX engines' ``ref_t``
+    (fused_streaming.py:139,157; ``_ref_dev``, serving.py:269-279), numpy
+    float32 (..., rows, 128): row c+j ↔ reference frame j in both, then
+    zero rows past the end for the window the JAX kernel reads there — the
+    band's 128-lane row in the standard layout, the reference window
+    ``r_win`` of ``_long_geometry`` (pallas_otw.py:868-875) in the long
+    one."""
+    rows = ref_rows.detach().cpu().numpy() if isinstance(ref_rows, torch.Tensor) else np.asarray(ref_rows)
+    w_lane = _round_up(c + 1, _LANES)
+    tail = _round_up(w_lane + k_block * loop_iters + 16, _SUBLANES) if long_ref else w_lane
+    cn, f = rows.shape[-2:]
+    out = np.zeros(rows.shape[:-2] + (_round_up(cn + tail + 8, _SUBLANES), _LANES), np.float32)
+    out[..., :cn, :f] = rows
+    return out
+
+
+def wtw_refs_to_jax(ref_rows, ref_ids, ms, shared: bool) -> np.ndarray:
+    """The port's deduplicated WTW references (``BlockStepper.ref`` (U,
+    m_max, F)), each stream's index into them and its length → a JAX
+    ``MultiStreamWTW``'s ``_ref_dev`` (wtw_serving.py:161-170,185-188),
+    numpy in their dtype: (F, m) when every stream follows one reference,
+    else (B, F, m_max), each stream's zero-padded past its length."""
+    rows = ref_rows.detach().cpu().numpy()
+    ids = [int(i) for i in (ref_ids.tolist() if isinstance(ref_ids, torch.Tensor) else ref_ids)]
+    if shared:
+        return np.ascontiguousarray(rows[ids[0], : int(ms[0])].T)
+    out = np.zeros((len(ids), rows.shape[2], rows.shape[1]), rows.dtype)
+    for b, (u, m) in enumerate(zip(ids, ms)):
+        out[b, :, : int(m)] = rows[u, : int(m)].T
+    return out
 
 
 def _live_rows_written(scalars, c: int, cap: int):

@@ -47,7 +47,29 @@ def load_wav(path: str, target_sr: int | None = TARGET_SR, mono: bool = True) ->
     Returns ``(samples, sample_rate)``.  Matches ``librosa.load(path)``
     semantics for the corpus files: int16 PCM scaled by 1/32768, channels
     averaged, already at 22 050 Hz.
+
+    Plain PCM16 files decode through the native C++ loader when it is
+    available (native/rtas_runtime.cpp — identical arithmetic); anything
+    else takes the Python path below.
     """
+    if mono:
+        try:
+            from real_time_audio_sync_tpu_torch.native.bindings import native_decode_wav
+
+            decoded = native_decode_wav(path)
+        except Exception:
+            decoded = None
+        if decoded is not None:
+            data, sr = decoded
+            if target_sr is not None and sr != target_sr:
+                from math import gcd
+
+                from scipy.signal import resample_poly
+
+                g = gcd(int(target_sr), int(sr))
+                data = resample_poly(data, target_sr // g, sr // g).astype(np.float32)
+                sr = target_sr
+            return np.ascontiguousarray(data, dtype=np.float32), sr
     with wave.open(path, "rb") as w:
         sr = w.getframerate()
         n_channels = w.getnchannels()

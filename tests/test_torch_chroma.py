@@ -155,3 +155,22 @@ def test_top_level_exports_the_chroma_entry_points():
     for name in ("wav_to_chroma", "wav_to_chroma_col", "wav_to_chroma_diff"):
         assert getattr(port, name) is getattr(tchroma, name)
         assert hasattr(jax_pkg, name)
+
+
+@pytest.mark.parametrize("np_dtype,t_dtype,atol", DTYPES)
+def test_create_stft_and_create_chroma_match_jax(random_wav, np_dtype, t_dtype, atol):
+    """The reference's intermediate surface (chroma.py:44-75): the complex
+    STFT (tolerance relative to its largest magnitude: its values are sums
+    of 4096 products, not unit columns) and spectrum → chroma, both numpy
+    arrays as in the JAX package."""
+    wav = random_wav[: 22050 * 2]
+    ft = tchroma.create_stft(wav, dtype=np_dtype, device="cpu")
+    want = jchroma.create_stft(wav, dtype=np_dtype)
+    assert isinstance(ft, np.ndarray) and ft.shape == want.shape == (2049, tchroma.num_frames(len(wav)))
+    np.testing.assert_allclose(ft, want, rtol=0, atol=atol * np.abs(want).max())
+    for normalize in (True, False):
+        got = tchroma.create_chroma(want, normalize=normalize, dtype=np_dtype, device="cpu")
+        ref = jchroma.create_chroma(want, normalize=normalize, dtype=np_dtype)
+        assert isinstance(got, np.ndarray) and got.dtype == np_dtype and got.shape == ref.shape == (12, ft.shape[1])
+        np.testing.assert_allclose(got, ref, rtol=0, atol=atol * (1 if normalize else np.abs(ref).max()))
+    assert tchroma.create_stft(np.zeros(100), device="cpu").shape == (2049, 0)

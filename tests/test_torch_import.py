@@ -48,7 +48,10 @@ def test_chip_smoke_fails_without_a_card(tmp_path, alone):
     assert '"ok"' not in proc.stdout and '"kernels"' not in proc.stdout
 
 
-@pytest.mark.parametrize("module", ["parallel.wtw_serving", "models.wtw_async"])
+@pytest.mark.parametrize("module", ["parallel.wtw_serving", "models.wtw_async", "parallel.corpus", "utils.checkpoint",
+                                    "native.bindings", "utils.wavio", "features.chroma", "streaming.core",
+                                    "streaming.display", "streaming.audio_config", "streaming.sources",
+                                    "streaming.audio_io", "streaming.app"])
 def test_module_imports_alone_with_jax_blocked(module):
     """A module imported on its own, with JAX blocked, pulls in neither
     JAX nor the JAX package."""
@@ -98,6 +101,10 @@ ENTRY_POINTS = [
     ("parallel.serving", "MultiStreamFollower"),
     ("models.wtw_async", "AsyncWTW"),
     ("parallel.wtw_serving", "MultiStreamWTW"),
+    ("parallel.corpus", "batched_set_live"),
+    ("streaming.app", "follow_live"),
+    ("features.chroma", "create_stft"),
+    ("features.chroma", "create_chroma"),
 ]
 
 
@@ -131,6 +138,32 @@ def test_cli_defaults_to_the_card(monkeypatch):
     monkeypatch.setattr(corpus, "CorpusRunner", Recorder)
     assert main(["--corpus", "Songs", "--engine", "dtw"]) == 0
     assert main(["--corpus", "Songs", "--engine", "dtw", "--device", "cpu"]) == 0
+    assert seen == ["cuda", "cpu"]
+
+
+def test_app_help_runs_with_jax_blocked():
+    """``python -m real_time_audio_sync_tpu_torch.streaming --help`` with JAX
+    blocked: the app's CLI, with its ``--device`` flag, and neither JAX nor
+    the JAX package imported."""
+    code = ("import runpy, sys; sys.modules['jax'] = None; sys.argv = ['app', '--help']\n"
+            "try:\n    runpy.run_module('real_time_audio_sync_tpu_torch.streaming', run_name='__main__')\n"
+            "except SystemExit as e:\n    assert e.code == 0, e.code\n"
+            "assert 'real_time_audio_sync_tpu' not in sys.modules\n"
+            "assert not any(k.startswith('jax') for k, v in sys.modules.items() if v is not None)\nprint('ok')")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, cwd=ROOT, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "--device" in out.stdout and "--engine" in out.stdout and out.stdout.strip().endswith("ok")
+
+
+def test_app_defaults_to_the_card(monkeypatch):
+    """The app hands ``follow_live`` ``device="cuda"`` unless ``--device``
+    says otherwise (the follower is replaced; nothing is followed)."""
+    from real_time_audio_sync_tpu_torch.streaming import app
+
+    seen = []
+    monkeypatch.setattr(app, "follow_live", lambda *args, device, **kwargs: seen.append(device))
+    assert app.main(["--ref", "ref.wav", "--live", "live.wav"]) == 0
+    assert app.main(["--ref", "ref.wav", "--engine", "wtw", "--device", "cpu"]) == 0
     assert seen == ["cuda", "cpu"]
 
 
