@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --band-times [TREE]   # the band, wavefront and WTW kernels' times alone (A/B)
+    python3 chip_smoke.py --serving-hops [TREE] # phases 10 (b) and 12 (b) unsharded, timed alone (A/B)
 
 Phases, each raising on failure (the process then exits non-zero):
 
@@ -267,12 +268,37 @@ Phases, each raising on failure (the process then exits non-zero):
    dense route on 3 cut pairs: float32 equal to the kernel's paths, float64
    on the card equal to float64 on the CPU.
 
+16. ``mesh=`` on the one card (kernels #3, #5, #6, #7/#8 over a batch and
+   #10 launched once a shard; a mesh of the card n times stands in for n
+   devices, so no run here covers more than one card), cut in depth to fit
+   60 s (``MESH_*``, each cut printed) —
+   (a) phase 10 (b)'s cell, ``FusedMultiStreamFollower`` at B = 256, in
+   both layouts, unsharded, on ``corpus_mesh()`` and on 4 shards: every
+   stream's path and the stop masks equal the unsharded run's, #5/#6
+   launch shards × dispatches times; wall, and wall and host CPU a hop;
+   (b) ``FusedMultiStreamWTW`` at B = 64, w = 100 on 4 shards (#10 shards
+   × dispatches), ``MultiStreamWTW`` at w = 200 over the 18 sweep pairs on
+   2 shards (#7/#8 once a shard's slot with a due window) and
+   ``MultiStreamFollower`` at B = 8 on 2 shards (no band kernel): each
+   equal to its unsharded run;
+   (c) ``batched_set_live`` over the 18 sweep pairs on 2 and 3 shards: one
+   launch of #3 a shard, paths equal the unsharded call's, the mean equal
+   to the float32 sum × float32(1/18), printed as a hex float;
+   (d) ``sharded_chroma_frames`` on ``_00``'s frames (cut to a multiple of
+   4) on 4 shards, float32 and float64: equal to its shards'
+   ``chroma_frames``, within the CPU test's tolerance of one call on every
+   frame (max |diff| printed);
+   (e) a 4-shard ``FusedMultiStreamFollower`` (B = 8) saved halfway and
+   loaded into an unsharded one resumes to the uninterrupted path, both
+   layouts.
+
 The builds run in parallel (one ``nvcc`` per source).  Then each phase's
 seconds, one JSON line of per-kernel results, and last ``{"ok": true,
 "device": {...}}``.  ``--band-times [TREE]`` only times the two band
 kernels, the two wavefront kernels (the DP also over a batch of windows)
 and the WTW kernel (:func:`band_times`), for an A/B of two trees in one
-call.
+call; ``--serving-hops [TREE]`` only times the unsharded serving cells of
+phases 10 (b) and 12 (b) (:func:`serving_hops`), for the same.
 Without a CUDA device it exits non-zero before printing any result.
 """
 
@@ -464,6 +490,16 @@ ASYNC_SWEEP_TRACE_CHUNKS = 400
 # each recording the pairs and the sweep run (uncut, (d) and (e) took 18.4
 # s and 30.6 s of a 95 s phase; at 1,000 hops the phase took 58.5 s)
 ASYNC_CUT_HOPS = 800
+# phase 16: mesh= on one card, cut in depth to fit 60 s: (a)'s hops at
+# B = 256 (stream i joins at hop i), (b)'s hops of the WTW servers, the
+# tensor engine's streams and hops, (e)'s streams and hops
+MESH_SERVING_HOPS = 1000
+MESH_WTW_HOPS = 400
+MESH_ONLINE_STREAMS, MESH_ONLINE_HOPS = 8, 100
+MESH_RESUME_STREAMS, MESH_RESUME_HOPS = 8, 600
+# --serving-hops: untimed hops of each cell before its timed runs, and
+# the timed runs of each cell (a fresh server each)
+SERVING_HOPS_WARMUP, SERVING_HOPS_REPEATS = 40, 3
 # --band-times: the batched DP's (B, w), float32
 WAVEFRONT_BATCH_TIMED = ((18, 100), (64, 200))
 # phase 15: the app's live recording cut to its first APP_HOPS hops (the
@@ -1876,6 +1912,114 @@ def band_times(tree) -> int:
     return 0
 
 
+def serving_hops(tree) -> int:
+    """``--serving-hops [TREE]``: the unsharded serving cells of phases
+    10 (b) (``FusedMultiStreamFollower``, B = 256, both layouts) and 12 (b)
+    (``FusedMultiStreamWTW``, B = 64, w = 100) alone, every hop of them,
+    with the port imported from the checkout at ``TREE`` or from this one,
+    for an A/B of the host's dispatch path of two trees on one card.  Each
+    cell runs once untimed for ``SERVING_HOPS_WARMUP`` hops (the kernels'
+    build), then ``SERVING_HOPS_REPEATS`` times timed on a fresh server:
+    wall and host CPU µs a hop, launches (counters), and a digest of every
+    stream's path (equal digests, equal paths).  Prints the card and the package's path, a line a cell, and
+    last one JSON object of every number; exits 0."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
+        return 2
+    if tree is not None:
+        sys.path.insert(0, os.path.abspath(tree))
+    import real_time_audio_sync_tpu_torch
+    from real_time_audio_sync_tpu_torch.features.chroma import wav_to_chroma
+    from real_time_audio_sync_tpu_torch.ops import otw_insert, wtw_insert
+    from real_time_audio_sync_tpu_torch.parallel import FusedMultiStreamFollower, FusedMultiStreamWTW
+    from real_time_audio_sync_tpu_torch.utils.wavio import load_wav
+
+    device = torch.device("cuda", 0)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True)
+    card = smi.stdout.strip().splitlines()[0]
+    package = os.path.dirname(real_time_audio_sync_tpu_torch.__file__)
+    log(card)
+    log(f"serving hop times of {package}")
+
+    def digest(paths) -> str:
+        h = hashlib.sha256()
+        for p in paths:
+            h.update(np.ascontiguousarray(np.asarray(p, np.int64)).tobytes() + b"|")
+        return h.hexdigest()[:16]
+
+    def timed_runs(make, run, hops: int, read_launches) -> dict:
+        """``SERVING_HOPS_REPEATS`` timed runs, each on a fresh server with
+        its launch counters at 0: every run's wall and host CPU µs a hop
+        and launches (adaptive coalescing lets the dispatches vary with
+        the timing), the least of the times, and the path digest (raises
+        unless every run gives the same)."""
+        from real_time_audio_sync_tpu_torch.ops import otw_insert, wtw_insert
+
+        walls, hosts, launches, digests = [], [], [], set()
+        for _ in range(SERVING_HOPS_REPEATS):
+            server = make()
+            otw_insert.multi_launches = otw_insert.multi_delta_launches = wtw_insert.multi_launches = 0
+            _, wall, host = mesh_timed(lambda: run(server))
+            walls.append(wall / hops * 1e6)
+            hosts.append(host / hops * 1e6)
+            launches.append(read_launches())
+            digests.add(digest(server.paths()))
+        if len(digests) != 1:
+            raise AssertionError(f"--serving-hops: the runs' paths differ: {digests}")
+        row = {"hops": hops, "wall_us_a_hop": walls, "host_us_a_hop": hosts, "min_wall_us_a_hop": min(walls),
+               "min_host_us_a_hop": min(hosts), "launches": launches, "paths": digests.pop()}
+        row["summary"] = (f"wall us a hop {', '.join(f'{w:.1f}' for w in walls)} (least {min(walls):.1f}), host CPU "
+                          f"us a hop {', '.join(f'{h:.1f}' for h in hosts)} (least {min(hosts):.1f}), "
+                          f"launches {', '.join(map(str, launches))}, paths {row['paths']}")
+        return row
+
+    from real_time_audio_sync_tpu_torch.models.wtw import WTWLongReferenceWarning
+
+    warnings.simplefilter("ignore", WTWLongReferenceWarning)  # the live app's widths on a long reference, as main's
+    out = {"card": card, "package": package}
+    with tempfile.TemporaryDirectory() as root:
+        render_piece(root)
+        d = os.path.join(root, "sonata_allegro")
+        ref_wav = os.path.join(d, "sonata_allegro_00.wav")
+        pcms = [load_wav(os.path.join(d, f"sonata_allegro_0{i}.wav"))[0] for i in (1, 2)]
+        ref = wav_to_chroma(ref_wav, np.float32, device=device)
+        cols = [hop_columns([pcm[s : s + 2048] for s in range(0, len(pcm), 2048)], device) for pcm in pcms]
+        lens = np.asarray([x.shape[1] for x in cols])
+        lives = np.zeros((2, lens.max(), 12), np.float32)
+        for i, x in enumerate(cols):
+            lives[i, : lens[i]] = x.T.cpu().numpy()
+        b = SERVING_STREAMS
+        perf = np.arange(b) % 2  # phase 10 (b): even streams follow _01, odd streams _02
+        hops = b - 1 + int(lens.max())
+        for long_ref in (True, False):
+            label = "windowed" if long_ref else "whole buffer"
+            make = lambda: FusedMultiStreamFollower(ref, PARAMS, n_streams=b, k_block=8, long_ref=long_ref,  # noqa: E731
+                                                    device=device)
+            serve(make(), lives, lens, perf, SERVING_HOPS_WARMUP)
+            row = timed_runs(make, lambda fms: serve(fms, lives, lens, perf, hops), hops,
+                             lambda: otw_insert.multi_delta_launches if long_ref else otw_insert.multi_launches)
+            out[f"follower_{'windowed' if long_ref else 'whole'}"] = row
+            log(f"phase 10 (b) [{label}, unsharded, {card}]: B = {b}, {hops} hops, {row['summary']}")
+        buffers = [[pcm[s : s + 2048] for s in range(0, len(pcm), 2048)] for pcm in pcms]
+        b = WTW_SERVING_STREAMS
+        perf = np.arange(b) % 2  # phase 12 (b)
+        hops = b - 1 + max(len(x) for x in buffers)
+        make = lambda: FusedMultiStreamWTW([ref_wav] * b, LIVE_APP_WTW, k_block=8, transfer_dtype="float32",  # noqa: E731
+                                           device=device)
+        serve_wtw(make(), buffers, perf, SERVING_HOPS_WARMUP)
+        row = timed_runs(make, lambda ms: serve_wtw(ms, buffers, perf, hops), hops, lambda: wtw_insert.multi_launches)
+        out["wtw"] = row
+        log(f"phase 12 (b) [unsharded, {card}]: B = {b}, {hops} hops, {row['summary']}")
+    print(json.dumps(out), flush=True)
+    return 0
+
+
 def render_concert(root: str):
     """The eight ``_00`` recordings back to back (reference) and their
     ``_01`` recordings in the same order (live), with their beat CSVs
@@ -2264,8 +2408,14 @@ def multi_device_bytes(fms) -> int:
     return total // fms.b
 
 
+def pending_deltas(fms) -> list:
+    """A multi-stream server's pending delta entries, every shard's."""
+    return [e for sh in fms._shards for e in sh.deltas]
+
+
 def pending_delta_bytes(fms) -> int:
-    return sum(x.numel() * x.element_size() for e in fms._deltas for x in (e if isinstance(e, tuple) else (e,)))
+    return sum(x.numel() * x.element_size() for e in pending_deltas(fms)
+               for x in (e if isinstance(e, tuple) else (e,)))
 
 
 def serve(fms, lives, lens, perf, hops: int) -> None:
@@ -2311,7 +2461,7 @@ def serving_run(ref, lives, lens, perf, long_ref: bool, hops: int, device, label
     if counts != want or not fms.dispatched_block_sizes:
         raise AssertionError(f"{label}: launches (solo, solo delta, batched, batched delta) {counts}, want {want}")
     pending = pending_delta_bytes(fms) if long_ref else 0
-    entries = len(fms._deltas) if long_ref else 0
+    entries = len(pending_deltas(fms)) if long_ref else 0
     t1 = time.perf_counter()
     paths = fms.paths()
     drain_s = time.perf_counter() - t1
@@ -3153,7 +3303,7 @@ def wtw_serving_run(ref_wav: str, buffers, perf, k_block: int, transfer: str, de
     counts = (wtw_insert.launches, wtw_insert.multi_launches)
     if counts != (0, len(sizes)) or not sizes:
         raise AssertionError(f"{label}: launches (kernel #9, kernel #10) {counts} for {len(sizes)} dispatches")
-    pending, entries = pending_delta_bytes(ms), len(ms._deltas)
+    pending, entries = pending_delta_bytes(ms), len(pending_deltas(ms))
     t1 = time.perf_counter()
     paths = ms.paths()
     drain_s = time.perf_counter() - t1
@@ -4239,6 +4389,303 @@ def phase_corpus_batch(device, root: str, card: str) -> int:
     return launches
 
 
+def mesh_of(device, n: int):
+    """A mesh of the one card ``n`` times: n shards side by side on it
+    (the port's stand-in for virtual devices; no run here covers more than
+    one card)."""
+    import numpy as np
+
+    from real_time_audio_sync_tpu_torch.parallel.mesh import Mesh
+
+    return Mesh(np.asarray([device] * n, dtype=object), ("data",))
+
+
+def mesh_timed(run):
+    """(result, wall seconds, host CPU seconds) of ``run()``, the card
+    synchronized before and after."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0, c0 = time.perf_counter(), time.process_time()
+    out = run()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, time.process_time() - c0
+
+
+def mesh_serving(device, ref, lives, lens, perf, card: str) -> dict:
+    """Phase 16 (a): ``FusedMultiStreamFollower`` at B = 256 unsharded, on
+    ``corpus_mesh()`` and on 4 shards of the card, both layouts; returns
+    the launches of #5 and #6 on the sharded runs."""
+    import numpy as np
+
+    from real_time_audio_sync_tpu_torch.ops import otw_insert
+    from real_time_audio_sync_tpu_torch.parallel import FusedMultiStreamFollower, corpus_mesh
+
+    b, hops = len(perf), MESH_SERVING_HOPS
+    log(f"phase 16 (a) [{card}]: FusedMultiStreamFollower, B = {b} on the shared sonata_allegro_00, even streams "
+        f"on _01, odd on _02, stream i joining at hop i; cut to the first {hops} hops of {b - 1 + int(lens.max())}")
+    launches = {"otw_multi_insert_block_long": 0, "otw_multi_insert_block": 0}
+    for long_ref in (True, False):
+        name = "otw_multi_insert_block_long" if long_ref else "otw_multi_insert_block"
+        runs = {}
+        for label, mesh in (("unsharded", None), ("corpus_mesh()", corpus_mesh()), ("4 shards", mesh_of(device, 4)),
+                            ("unsharded again", None)):  # the repeat: the spread of the unsharded wall
+            fms = FusedMultiStreamFollower(ref, PARAMS, n_streams=b, k_block=8, long_ref=long_ref, mesh=mesh,
+                                           device=device)
+            otw_insert.launches = otw_insert.delta_launches = 0
+            otw_insert.multi_launches = otw_insert.multi_delta_launches = 0
+            _, wall, host = mesh_timed(lambda: serve(fms, lives, lens, perf, hops))
+            counts = (otw_insert.launches, otw_insert.delta_launches, otw_insert.multi_launches,
+                      otw_insert.multi_delta_launches)
+            shards, dispatches = len(fms._shards), len(fms.dispatched_block_sizes)
+            want = (0, 0, 0, shards * dispatches) if long_ref else (0, 0, shards * dispatches, 0)
+            if counts != want or not dispatches:
+                raise AssertionError(f"phase 16 (a) [{label}]: launches (solo, solo delta, batched, batched delta) "
+                                     f"{counts}, want {want}")
+            if mesh is not None:
+                launches[name] += want[2] + want[3]
+            runs[label] = (fms.paths(), fms.stopped.copy(), dispatches)
+            log(f"phase 16 (a) [{'windowed' if long_ref else 'whole buffer'}, {label}]: {shards} shard(s), "
+                f"{dispatches} dispatches, {want[2] + want[3]} launches of #{5 if long_ref else 6} read from the "
+                f"counters (shards x dispatches); wall {wall:.3f} s, {wall / hops * 1e6:.1f} us a hop, host CPU "
+                f"{host / hops * 1e6:.1f} us a hop")
+        paths, stopped, dispatches = runs["unsharded"]
+        for label in ("corpus_mesh()", "4 shards", "unsharded again"):
+            got, got_stopped, got_dispatches = runs[label]
+            if not equal_paths(got, paths) or not np.array_equal(got_stopped, stopped) or got_dispatches != dispatches:
+                raise AssertionError(f"phase 16 (a) [{label}]: paths, stop masks or dispatches != unsharded")
+        log(f"phase 16 (a) [{'windowed' if long_ref else 'whole buffer'}]: every stream's path == the unsharded "
+            f"run's on both meshes ({sum(len(p) for p in paths)} points)")
+    return launches
+
+
+def mesh_wtw(device, root: str, card: str) -> dict:
+    """Phase 16 (b): the WTW servers and ``MultiStreamFollower`` sharded on
+    the card against their unsharded runs; returns the sharded launches of
+    #10 and of #7/#8 over a batch."""
+    import numpy as np
+    import torch
+
+    from real_time_audio_sync_tpu_torch.eval import corpus, synthetic
+    from real_time_audio_sync_tpu_torch.ops import otw_insert, otw_set_live, wavefront, wtw_insert
+    from real_time_audio_sync_tpu_torch.parallel import FusedMultiStreamWTW, MultiStreamFollower, MultiStreamWTW
+    from real_time_audio_sync_tpu_torch.utils.wavio import load_wav
+
+    launches = {}
+    # FusedMultiStreamWTW, B = 64 at the live app's w = 100 (phase 12 (b)'s cell), 4 shards
+    d = os.path.join(root, "sonata_allegro")
+    ref_wav = os.path.join(d, "sonata_allegro_00.wav")
+    pcms = [load_wav(os.path.join(d, f"sonata_allegro_0{i}.wav"))[0] for i in (1, 2)]
+    buffers = [[pcm[s : s + 2048] for s in range(0, len(pcm), 2048)] for pcm in pcms]
+    b, hops = WTW_SERVING_STREAMS, MESH_WTW_HOPS
+    perf = np.arange(b) % 2
+    runs = {}
+    for label, mesh in (("unsharded", None), ("4 shards", mesh_of(device, 4)), ("unsharded again", None)):
+        ms = FusedMultiStreamWTW([ref_wav] * b, LIVE_APP_WTW, k_block=8, transfer_dtype="float32", mesh=mesh,
+                                 device=device)
+        sizes, dispatch = [], ms._dispatch
+        ms._dispatch = lambda ks, _d=dispatch: sizes.append(int(ks.max())) or _d(ks)
+        wtw_insert.launches = wtw_insert.multi_launches = 0
+        _, wall, host = mesh_timed(lambda: serve_wtw(ms, buffers, perf, hops))
+        shards = len(ms._shards)
+        if (wtw_insert.launches, wtw_insert.multi_launches) != (0, shards * len(sizes)) or not sizes:
+            got = (wtw_insert.launches, wtw_insert.multi_launches)
+            raise AssertionError(f"phase 16 (b) [{label}]: launches (#9, #10) {got}, want (0, {shards * len(sizes)})")
+        if mesh is not None:
+            launches["wtw_multi_insert_block"] = wtw_insert.multi_launches
+        runs[label] = (ms.paths(), ms.pointers())
+        log(f"phase 16 (b) [{card}] FusedMultiStreamWTW [{label}]: B = {b}, w = 100, the first {hops} hops (a cut), "
+            f"{len(sizes)} dispatches, {wtw_insert.multi_launches} launches of #10 (shards x dispatches); wall "
+            f"{wall:.3f} s, {wall / hops * 1e6:.1f} us a hop, host CPU {host / hops * 1e6:.1f} us a hop")
+    if not runs["4 shards"] == runs["unsharded"] == runs["unsharded again"] or not any(runs["unsharded"][0]):
+        raise AssertionError("phase 16 (b): FusedMultiStreamWTW on 4 shards != unsharded")
+
+    # MultiStreamWTW at w = 200 over the 18 sweep pairs (phase 14 (e)'s cell), 2 shards
+    pairs = [p for p in corpus.corpus_pairs(root) if os.path.basename(os.path.dirname(p[0])) in synthetic.FULL_PIECES]
+    live_bufs = []
+    for _, live in pairs:
+        pcm = load_wav(live)[0]
+        live_bufs.append([pcm[s : s + 2048] for s in range(0, min(len(pcm), hops * 2048), 2048)])
+    runs = {}
+    for label, mesh in (("unsharded", None), ("2 shards", mesh_of(device, 2)), ("unsharded again", None)):
+        ms = MultiStreamWTW([r for r, _ in pairs], ASYNC_WIDE, transfer_dtype="float32", mesh=mesh, device=device)
+        slots = []
+
+        def tally(plan):
+            def counted(ks):
+                out = plan(ks)
+                slots.append(sum(1 for c in out[4] if c))  # a slot with a due window: one launch each of #7, #8
+                return out
+            return counted
+
+        for sh in ms._shards:
+            sh.state.plan = tally(sh.state.plan)
+        wavefront.dp_batched_launches = wavefront.backtrack_batched_launches = 0
+        _, wall, host = mesh_timed(lambda: serve_wtw(ms, live_bufs, range(len(pairs)), hops))
+        got = (wavefront.dp_batched_launches, wavefront.backtrack_batched_launches)
+        if got != (sum(slots), sum(slots)) or not sum(slots):
+            raise AssertionError(f"phase 16 (b) [{label}]: batched DP and backtrack launches {got}, want "
+                                 f"{sum(slots)} each (the shards' slots with due windows)")
+        if mesh is not None:
+            launches["wavefront_dp_batched"] = launches["wavefront_backtrack_batched"] = sum(slots)
+        runs[label] = (ms.paths(), ms.pointers())
+        log(f"phase 16 (b) [{card}] MultiStreamWTW [{label}]: the {len(pairs)} sweep pairs at w = 200, each stream "
+            f"i joining at hop i, the first {hops} hops (a cut), {sum(slots)} batched launches each of #7 and #8 "
+            f"(a shard's slot with a due window each); wall {wall:.3f} s, host CPU {host / hops * 1e6:.1f} us a hop")
+    if not runs["2 shards"] == runs["unsharded"] == runs["unsharded again"] or not any(runs["unsharded"][0]):
+        raise AssertionError("phase 16 (b): MultiStreamWTW on 2 shards != unsharded")
+
+    # MultiStreamFollower at B = 8 on sweep pairs, 2 shards (the tensor engine: no hand-written kernel)
+    refs = [corpus._cached_chroma(r, np.float32, device) for r, _ in pairs[:MESH_ONLINE_STREAMS]]
+    lives = [corpus._cached_chroma(l, np.float32, device) for _, l in pairs[:MESH_ONLINE_STREAMS]]
+    cols = torch.stack([l[:, :MESH_ONLINE_HOPS] for l in lives]).permute(2, 0, 1).contiguous()  # (hops, B, 12)
+    runs = {}
+    for label, mesh in (("unsharded", None), ("2 shards", mesh_of(device, 2)), ("unsharded again", None)):
+        ms = MultiStreamFollower(refs, PARAMS, mesh=mesh, device=device)
+        otw_insert.launches = otw_insert.multi_launches = otw_set_live.launches = 0
+        _, wall, host = mesh_timed(lambda: [ms.insert(c) for c in cols])
+        if (otw_insert.launches, otw_insert.multi_launches, otw_set_live.launches) != (0, 0, 0):
+            raise AssertionError(f"phase 16 (b) [{label}]: a band kernel launched under the tensor engine")
+        runs[label] = (ms.paths(), ms.stopped, ms.pointers())
+        log(f"phase 16 (b) [{card}] MultiStreamFollower [{label}]: B = {len(refs)}, {MESH_ONLINE_HOPS} hops (a cut), "
+            f"wall {wall:.3f} s, {wall / MESH_ONLINE_HOPS * 1e3:.2f} ms a hop, host CPU "
+            f"{host / MESH_ONLINE_HOPS * 1e3:.2f} ms a hop")
+    p0, s0, q0 = runs["unsharded"]
+    for label in ("2 shards", "unsharded again"):
+        p1, s1, q1 = runs[label]
+        if (not equal_paths(p0, p1) or not np.array_equal(s0, s1)
+                or any(not np.array_equal(a, c) for a, c in zip(q0, q1))):
+            raise AssertionError(f"phase 16 (b): MultiStreamFollower [{label}] != unsharded")
+    log("phase 16 (b): every sharded run == its unsharded run, stream for stream (paths, pointers, stop masks)")
+    return launches
+
+
+def mesh_corpus_and_frontend(device, root: str, card: str) -> int:
+    """Phase 16 (c) and (d); returns the sharded launches of #3."""
+    import numpy as np
+    import torch
+
+    from real_time_audio_sync_tpu_torch.eval import corpus, synthetic
+    from real_time_audio_sync_tpu_torch.features.chroma import chroma_frames, frame_span, num_frames
+    from real_time_audio_sync_tpu_torch.ops import otw_set_live
+    from real_time_audio_sync_tpu_torch.parallel import batched_set_live, pad_pairs, sharded_chroma_frames
+    from real_time_audio_sync_tpu_torch.utils.wavio import load_wav
+
+    pairs = [p for p in corpus.corpus_pairs(root) if os.path.basename(os.path.dirname(p[0])) in synthetic.FULL_PIECES]
+    padded = pad_pairs([corpus._cached_chroma(r, np.float32, device).cpu().numpy() for r, _ in pairs],
+                       [corpus._cached_chroma(l, np.float32, device).cpu().numpy() for _, l in pairs])
+    want, _ = batched_set_live(*padded, SWEEP_BAND, device=device)
+    launches = 0
+    for n in (2, 3):
+        otw_set_live.launches = 0
+        (paths, mean), wall, _ = mesh_timed(lambda: batched_set_live(*padded, SWEEP_BAND, mesh=mesh_of(device, n),
+                                                                      device=device))
+        b = len(pairs)
+        exact = np.float32(sum(len(p) for p in paths)) * (np.float32(1) / np.float32(b))
+        if otw_set_live.launches != n or not equal_paths(paths, want):
+            raise AssertionError(f"phase 16 (c): {otw_set_live.launches} launches of #3 on {n} shards, or paths != "
+                                 "the unsharded call's")
+        if mean.dtype != torch.float32 or mean.device != torch.device(device) or mean.item() != exact:
+            raise AssertionError(f"phase 16 (c): mean {mean} != sum x float32(1/{b}) = {exact}")
+        launches += n
+        log(f"phase 16 (c) [{card}]: batched_set_live over the {b} sweep pairs on {n} shards: {n} launches of #3 "
+            f"(one a shard), paths == unsharded, mean path length {float(mean).hex()} == sum x float32(1/{b}), "
+            f"{wall:.3f} s with packing and copies")
+
+    wav = torch.from_numpy(load_wav(os.path.join(root, "sonata_allegro", "sonata_allegro_00.wav"))[0])
+    t = num_frames(wav.shape[0])
+    cut = t - t % 4
+    for dtype, np_dtype in ((torch.float32, np.float32), (torch.float64, np.float64)):
+        x = torch.cat([torch.zeros(2048, dtype=dtype), wav.to(dtype)]).to(device)
+        frames = frame_span(x, t, 4096, 2048)[:cut]
+        got = sharded_chroma_frames(frames, mesh_of(device, 4), dtype=np_dtype)
+        whole = chroma_frames(frames)
+        quarters = torch.cat([chroma_frames(q) for q in frames.chunk(4)], dim=1)
+        diff = (got - whole).abs().max().item()
+        if got.shape != (12, cut) or got.device != torch.device(device) or not torch.equal(got, quarters):
+            raise AssertionError(f"phase 16 (d): {dtype}: the sharded chromagram != its shards' chroma_frames")
+        if dtype == torch.float64:
+            torch.testing.assert_close(got, whole, rtol=1e-12, atol=1e-14)
+        elif diff > 1e-5:
+            raise AssertionError(f"phase 16 (d): float32 max |diff| {diff} > 1e-5")
+        log(f"phase 16 (d) [{card}]: sharded_chroma_frames, {dtype}, {cut} of _00's {t} frames (a multiple of the 4 "
+            f"shards) == its shards' chroma_frames; max |diff| against one chroma_frames call {diff:.3e}")
+    return launches
+
+
+def mesh_resume(device, root: str, card: str) -> None:
+    """Phase 16 (e): a 4-shard ``FusedMultiStreamFollower`` saved halfway
+    and loaded into an unsharded one resumes to the uninterrupted path."""
+    import numpy as np
+
+    from real_time_audio_sync_tpu_torch.features.chroma import wav_to_chroma
+    from real_time_audio_sync_tpu_torch.parallel import FusedMultiStreamFollower
+    from real_time_audio_sync_tpu_torch.utils import checkpoint
+    from real_time_audio_sync_tpu_torch.utils.wavio import load_wav
+
+    d = os.path.join(root, "sonata_allegro")
+    ref = wav_to_chroma(os.path.join(d, "sonata_allegro_00.wav"), np.float32, device=device)
+    cols = []
+    for take in ("01", "02"):
+        pcm, _ = load_wav(os.path.join(d, f"sonata_allegro_{take}.wav"))
+        cols.append(hop_columns([pcm[s : s + 2048] for s in range(0, (MESH_RESUME_HOPS + 1) * 2048, 2048)], device))
+    b, half = MESH_RESUME_STREAMS, MESH_RESUME_HOPS // 2
+    lives = np.stack([c.T.cpu().numpy() for c in cols])
+    perf = np.arange(b) % 2
+
+    def feed(f, lo, hi):
+        for h in range(lo, hi):
+            f.feed(lives[perf, h])
+
+    for long_ref in (True, False):
+        def make(mesh=None):
+            return FusedMultiStreamFollower(ref, PARAMS, n_streams=b, k_block=8, long_ref=long_ref, mesh=mesh,
+                                            device=device)
+
+        whole = make()
+        feed(whole, 0, MESH_RESUME_HOPS)
+        whole.flush()
+        four = make(mesh_of(device, 4))
+        feed(four, 0, half)
+        ckpt = os.path.join(root, f"mesh_resume_{int(long_ref)}.npz")
+        checkpoint.save_multi_stream_state(four, ckpt)
+        resumed = make()
+        checkpoint.load_multi_stream_state(resumed, ckpt)
+        feed(resumed, half, MESH_RESUME_HOPS)
+        resumed.flush()
+        if not equal_paths(resumed.paths(), whole.paths()) or not any(len(p) for p in whole.paths()):
+            raise AssertionError(f"phase 16 (e): long_ref={long_ref}: the 4-shard checkpoint resumed unsharded "
+                                 "differs from the uninterrupted run")
+        log(f"phase 16 (e) [{card}]: {'windowed' if long_ref else 'whole buffer'}: B = {b}, saved on 4 shards after "
+            f"{half} of {MESH_RESUME_HOPS} hops, loaded unsharded: the resumed paths == the uninterrupted run's")
+
+
+def phase_mesh(device, root: str, card: str) -> dict:
+    """Phase 16: ``mesh=`` on the one card; returns each kernel's launches
+    on the sharded runs."""
+    import numpy as np
+
+    from real_time_audio_sync_tpu_torch.features.chroma import wav_to_chroma
+    from real_time_audio_sync_tpu_torch.utils.wavio import load_wav
+
+    log(card)
+    d = os.path.join(root, "sonata_allegro")
+    ref = wav_to_chroma(os.path.join(d, "sonata_allegro_00.wav"), np.float32, device=device)
+    cols = []
+    for take in ("01", "02"):
+        pcm, _ = load_wav(os.path.join(d, f"sonata_allegro_{take}.wav"))
+        cols.append(hop_columns([pcm[s : s + 2048] for s in range(0, len(pcm), 2048)], device))
+    lens = np.asarray([x.shape[1] for x in cols])
+    lives = np.zeros((2, lens.max(), 12), np.float32)
+    for i, x in enumerate(cols):
+        lives[i, : lens[i]] = x.T.cpu().numpy()
+    launches = mesh_serving(device, ref, lives, lens, np.arange(SERVING_STREAMS) % 2, card)
+    launches.update(mesh_wtw(device, root, card))
+    launches["otw_batched_set_live"] = mesh_corpus_and_frontend(device, root, card)
+    mesh_resume(device, root, card)
+    return launches
+
+
 def ptxas_report(text: str) -> dict:
     """{mangled kernel name: (registers, stack bytes, spill store bytes,
     spill load bytes)} from nvcc's ``--ptxas-options=-v`` output."""
@@ -4416,6 +4863,12 @@ def main() -> int:
             resumed = timed("15", phase_checkpoints, device, root, card)
             batch_launches = timed("15", phase_corpus_batch, device, root, card)
         log(f"phase 15: {phase_s['15']:.1f} s in all")
+        with warnings.catch_warnings():
+            from real_time_audio_sync_tpu_torch.models.wtw import WTWLongReferenceWarning
+
+            warnings.simplefilter("ignore", WTWLongReferenceWarning)
+            mesh_launches = timed("16", phase_mesh, device, root, card)
+        log(f"phase 16: {phase_s['16']:.1f} s in all")
 
     # "ms" is each kernel's device time per launch (profiler; the CUDA-event
     # time when the trace holds none); otw_insert_block's at k_block 8,
@@ -4458,6 +4911,8 @@ def main() -> int:
             kernels[-1]["corpus_batch_launches"] = batch_launches
         if name == "wavefront_dp":  # phase 15 (a): the app's --engine wtw windows
             kernels[-1]["app"] = app_extra
+        if name in mesh_launches:  # phase 16: the launches of the sharded runs (shards x dispatches)
+            kernels[-1]["mesh_launches"] = mesh_launches[name]
     order = sorted(phase_s, key=lambda name: int(name.split("-")[0]))
     log("seconds a phase: " + ", ".join(f"{name} {phase_s[name]:.1f}" for name in order))
     log(f"total {time.perf_counter() - t_start:.1f} s")
@@ -4471,4 +4926,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--band-times"]:
         sys.exit(band_times(sys.argv[2] if len(sys.argv) > 2 else None))
+    if sys.argv[1:2] == ["--serving-hops"]:
+        sys.exit(serving_hops(sys.argv[2] if len(sys.argv) > 2 else None))
     sys.exit(main())

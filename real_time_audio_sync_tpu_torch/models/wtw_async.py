@@ -52,7 +52,7 @@ the timing of "stop" differs (lazy; dispatches after a stop are no-ops).
 
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -166,7 +166,7 @@ class BlockStepper:
     takes dropped writes, and ``sc`` (B, 8) int32."""
 
     def __init__(self, refs: Sequence[torch.Tensor], ref_ids: Sequence[int], n_caps: Sequence[int], w: int,
-                 hop_frames: int, k_block: int, window_backend: str, dtype, device):
+                 hop_frames: int, k_block: int, window_backend: str, dtype, device, n_buf: Optional[int] = None):
         self.w, self.hop, self.k_block = int(w), int(hop_frames), int(k_block)
         self.window_backend = window_backend
         self.device = torch.device(device)
@@ -175,7 +175,7 @@ class BlockStepper:
         f = refs[0].shape[0]
         ms = [int(refs[i].shape[1]) for i in ref_ids]
         self.m_max = max(int(r.shape[1]) for r in refs)
-        self.n_buf = max(int(n) for n in n_caps)
+        self.n_buf = max([int(n) for n in n_caps] + [n_buf or 0])  # n_buf: a larger batch's rows (a shard)
         self.p_cap = path_capacity(self.n_buf, self.w, self.hop)
         self.max_pts = 2 * self.w - 1
         self.max_slots = self.k_block + 1  # segments a block: one a due window, and the tail

@@ -323,16 +323,17 @@ class MultiOTWState:
         )
 
 
-def new_multi_state(refs, cfg: OnlineConfig, whole_path: bool = True) -> MultiOTWState:
+def new_multi_state(refs, cfg: OnlineConfig, whole_path: bool = True, n_max: Optional[int] = None) -> MultiOTWState:
     """Fresh state for B streams on the references' device: ``refs`` is a
     list of (F, N_b) tensors, one per stream; a list of one tensor repeated
     (the same object B times) is held once and shared.  Each stream's
     scalars are :func:`new_state`'s; ``whole_path=False`` allocates no path
-    buffers (delta mode)."""
+    buffers (delta mode).  ``n_max`` pads to a longer length than the
+    longest reference (a shard of a larger batch keeps the batch's shapes)."""
     b = len(refs)
     shared = b > 0 and all(r is refs[0] for r in refs)
     f = refs[0].shape[0]
-    n_max = max(r.shape[1] for r in refs)
+    n_max = max([r.shape[1] for r in refs] + [n_max or 0])
     c = cfg.c
     dev = refs[0].device
     if min(r.shape[1] for r in refs) < c:

@@ -52,7 +52,7 @@ matrix unit's order, so its costs can differ in the last ulp.
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -323,24 +323,26 @@ class MultiWTWState:
         return WTWState(ref=self.ref[0 if self.ref.shape[0] == 1 else b], live=self.live[b], scalars=self.scalars[b])
 
 
-def new_multi_state(refs, n_caps) -> MultiWTWState:
+def new_multi_state(refs, n_caps, m_max: Optional[int] = None, n_cap_max: Optional[int] = None) -> MultiWTWState:
     """Fresh state for B streams on the references' device: ``refs`` is a
     list of (F, m_b) reference chromas, one per stream (the same tensor
     object B times is stored once and shared), ``n_caps`` each stream's
-    live capacity; every scalar starts at 0."""
+    live capacity; every scalar starts at 0.  ``m_max`` and ``n_cap_max``
+    pad the reference and live rows further (a shard of a larger batch
+    keeps the batch's shapes)."""
     b = len(refs)
     if b == 0 or len(n_caps) != b:
         raise ValueError(f"need one live capacity per reference, got {len(n_caps)} for {b}")
     shared = all(r is refs[0] for r in refs)
     f = refs[0].shape[0]
     dev = refs[0].device
-    m_max = max(r.shape[1] for r in refs)
+    m_max = max([r.shape[1] for r in refs] + [m_max or 0])
     ref = torch.zeros((1 if shared else b, m_max, f), dtype=torch.float32, device=dev)
     for i, r in enumerate(refs[:1] if shared else refs):
         ref[i, : r.shape[1]] = r.T
     return MultiWTWState(
         ref=ref,
-        live=torch.zeros((b, int(max(n_caps)), f), dtype=torch.float32, device=dev),
+        live=torch.zeros((b, max(int(max(n_caps)), n_cap_max or 0), f), dtype=torch.float32, device=dev),
         scalars=torch.zeros((b, N_SCALARS), dtype=torch.int32, device=dev),
     )
 

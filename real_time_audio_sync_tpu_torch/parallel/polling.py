@@ -4,12 +4,13 @@ The counterpart of the JAX package's ``parallel/polling.py``
 ``BatchedStatusPolling``, under its method names, built the way the port's
 solo ``StatusPolling`` is built (``models/online_core.py``): after every
 launch the (B, 8) status rows are copied into a fresh pinned host buffer
-with an asynchronous copy on the current stream, and a ``torch.cuda.Event``
-is recorded behind it.  Completion is probed with ``event.query()`` (a
-local check, no synchronization) and reading a completed pinned buffer
-costs nothing, so no harvest thread is needed: the JAX worker thread exists
-for a relay round-trip that the card does not have.  On the CPU the status
-is ready at once.
+with an asynchronous copy on the current stream of the rows' device, and a
+``torch.cuda.Event`` is recorded behind it there (under a mesh, the rows of
+every shard go into one buffer, with one event a device).  Completion is
+probed with ``event.query()`` (a local check, no synchronization) and
+reading a completed pinned buffer costs nothing, so no harvest thread is
+needed: the JAX worker thread exists for a relay round-trip that the card
+does not have.  On the CPU the status is ready at once.
 
 The contract is the JAX one: the per-stream status rows are cumulative, so
 the newest completed vector subsumes everything dispatched before it; the
@@ -37,6 +38,22 @@ import time
 
 import torch
 
+from real_time_audio_sync_tpu_torch.parallel.mesh import on_device
+
+
+class _AllEvents:
+    """The events of one snapshot's copies on several devices, as one."""
+
+    def __init__(self, events):
+        self.events = events
+
+    def query(self) -> bool:
+        return all(e.query() for e in self.events)
+
+    def synchronize(self) -> None:
+        for e in self.events:
+            e.synchronize()
+
 
 class BatchedStatusPolling:
     """Mixin: rate-limited, non-blocking reads of B streams' status rows."""
@@ -48,16 +65,34 @@ class BatchedStatusPolling:
         self._last_poll_time = 0.0
         self._drain_lock = threading.Lock()
 
-    def _record_status(self, status: torch.Tensor) -> None:
-        """Snapshot a launch's status rows without waiting for the device."""
-        rows = status.reshape(status.shape[0], -1)
-        if rows.is_cuda:
-            host = torch.empty(rows.shape, dtype=rows.dtype, pin_memory=True)
-            host.copy_(rows, non_blocking=True)
-            event = torch.cuda.Event()
-            event.record()
-        else:
-            host, event = rows.clone(), None
+    def _record_status(self, status) -> None:
+        """Snapshot a launch's status rows without waiting for the device:
+        ``status`` is one (B, ...) tensor, or one tensor a shard in stream
+        order (a mesh), all copied into one (B, 8) host snapshot.  Each
+        copy runs on the current stream of its tensor's device, and one
+        event is recorded behind the copies on each device: the snapshot
+        is complete once every event has completed."""
+        parts = [status] if isinstance(status, torch.Tensor) else list(status)
+        rows = [p.reshape(p.shape[0], -1) for p in parts]
+        cuda = rows[0].is_cuda
+        host = torch.empty((sum(r.shape[0] for r in rows), rows[0].shape[1]), dtype=rows[0].dtype, pin_memory=cuda)
+        devices, off = [], 0
+        for r in rows:
+            dst = host[off : off + r.shape[0]]
+            off += r.shape[0]
+            if not cuda:
+                dst.copy_(r)
+                continue
+            with on_device(r.device):
+                dst.copy_(r, non_blocking=True)
+            if r.device not in devices:
+                devices.append(r.device)
+        events = []
+        for dev in devices:  # once a device, behind its last copy (one stream, in order)
+            with on_device(dev):
+                events.append(torch.cuda.Event())
+                events[-1].record()
+        event = None if not events else events[0] if len(events) == 1 else _AllEvents(events)
         with self._drain_lock:
             self._outstanding.append((host, event))
 

@@ -35,12 +35,17 @@ device state has stopped is masked in the commit.  Where the JAX engine
 vmaps its block step and so takes the lax wavefront (its Pallas batching
 rule does not apply), the card batches the kernels themselves.
 
-Not ported yet: ``mesh=`` (stream sharding over several cards), ROADMAP.md
-Queue 1 item 9.
+``mesh=`` (``parallel/mesh.Mesh``) splits either engine's streams over the
+mesh's entries, B/n a shard in stream order, with no exchange between
+shards (JAX ``wtw_serving.py:167-190``, ``:490-535``): each shard's state,
+staging and pending rows lie on its entry's device, the references once a
+device, and a dispatch runs the kernel (or the block step) once a shard;
+the host side stays one object in stream order.
 """
 
 from __future__ import annotations
 
+from types import SimpleNamespace
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -58,6 +63,7 @@ from real_time_audio_sync_tpu_torch.models.wtw import SampleFIFO, _check_ref_win
 from real_time_audio_sync_tpu_torch.models.wtw_async import TRANSFER_MODES, BlockStepper, build_span, check_dtype
 from real_time_audio_sync_tpu_torch.ops import wtw_insert
 from real_time_audio_sync_tpu_torch.ops.wtw_insert import WS_CHROMA, WS_LIVE, WS_REF
+from real_time_audio_sync_tpu_torch.parallel.mesh import Mesh, gather_rows, per_device, shards
 from real_time_audio_sync_tpu_torch.parallel.polling import BatchedStatusPolling
 from real_time_audio_sync_tpu_torch.parallel.serving import DeltaPathDrain, PinnedStaging
 from real_time_audio_sync_tpu_torch.utils.wavio import load_wav
@@ -119,19 +125,19 @@ class MultiStreamWTW(BatchedStatusPolling):
     waits for the card).
 
     The positional order is the JAX engine's; ``dtype`` is float32 or
-    float64; ``mesh`` must be None; ``device`` is where the state lives and
-    the block step runs (a CUDA device launches kernels #7 and #8, ``"cpu"``
-    runs their plain versions)."""
+    float64; ``device`` is where the state lives and the block step runs (a
+    CUDA device launches kernels #7 and #8, ``"cpu"`` runs their plain
+    versions).  ``mesh`` (B divisible by its size; its entries decide the
+    devices) runs one block step a shard, each shard's due windows of a
+    slot one launch of #7 and one of #8 on its device."""
 
-    def __init__(self, refs: Sequence, params, k_block: int = 8, dtype=np.float32, mesh=None,
+    def __init__(self, refs: Sequence, params, k_block: int = 8, dtype=np.float32, mesh: Optional[Mesh] = None,
                  transfer_dtype: str = "auto", ref_chromas: Optional[Sequence] = None, *, device="cuda"):
-        if mesh is not None:
-            raise NotImplementedError("mesh=: stream sharding over several cards is not ported yet "
-                                      "(ROADMAP Queue 1 item 9)")
-        self.mesh = None
+        self.mesh = mesh
         self.params = WTWParams.from_any(params)
         self.k_block = int(k_block)
-        self.device = torch.device(device)
+        self._shards = shards(mesh, len(refs), device)
+        self.device = self._shards[0].device
         if transfer_dtype not in TRANSFER_MODES:
             raise ValueError(f"unknown transfer_dtype {transfer_dtype!r}")
         from real_time_audio_sync_tpu_torch.parallel.transfer import resolve_transfer_mode
@@ -156,21 +162,24 @@ class MultiStreamWTW(BatchedStatusPolling):
                 raise ValueError(f"stream {i}: {e}") from None
         self.n_caps = (2 * self.ms).astype(np.int32)  # per-stream live capacity (wtw.py:52)
         self._shared_ref = len(unique) == 1
-        self._stepper = BlockStepper(unique, ids, self.n_caps, self._w, self._hop_frames, self.k_block, "auto",
-                                     self.dtype, self.device)
+        self._span_len = (self.k_block - 1) * self.hop_size + self.fft_len
+        item = self.dtype.itemsize
+        payload = {"chroma": 12 * self.k_block * item, "int16": self._span_len * 2}.get(
+            self.transfer_dtype, self._span_len * item)
+        held = per_device(self._shards, lambda d: [u.to(d) for u in unique])  # the references once a device
+        ref_rows = {}
+        for sh in self._shards:
+            st = BlockStepper(held[sh.device], ids[sh.rows], self.n_caps[sh.rows], self._w, self._hop_frames,
+                              self.k_block, "auto", self.dtype, sh.device, n_buf=int(self.n_caps.max()))
+            st.ref = ref_rows.setdefault(sh.device, st.ref)  # shards on one device read one copy
+            sh.state = st
+            if sh.device.type == "cuda":
+                nb = st.b
+                sh.staging = PinnedStaging(PinnedStaging.nbytes(
+                    nb * payload, nb * self.k_block * 8, st.max_slots * 4 * nb * 4, st.max_slots * nb * 8), sh.device)
 
         self.bufs = [SampleFIFO(self.dtype) for _ in range(self.b)]
         self._stopped = np.zeros(self.b, bool)
-        self._span_len = (self.k_block - 1) * self.hop_size + self.fft_len
-        self._staging = None
-        if self.device.type == "cuda":
-            item = self.dtype.itemsize
-            payload = {"chroma": 12 * self.k_block * item, "int16": self._span_len * 2}.get(
-                self.transfer_dtype, self._span_len * item)
-            st = self._stepper
-            self._staging = PinnedStaging(PinnedStaging.nbytes(
-                self.b * payload, self.b * self.k_block * 8, st.max_slots * 4 * self.b * 4,
-                st.max_slots * self.b * 8), self.device)
         self._init_batched_polling()
 
     def _ref_chromas(self, refs, ref_chromas):
@@ -230,13 +239,17 @@ class MultiStreamWTW(BatchedStatusPolling):
 
     def _dispatch(self, ks: np.ndarray) -> None:
         payload = self._spans(ks)
-        st = self._stepper
-        pos, table, due, slots, counts = st.plan(ks)
-        if self._staging is not None:
-            payload_d, pos_d, table_d, due_d = self._staging.put(payload, pos, table, due)
-        else:
-            payload_d, pos_d, table_d, due_d = (torch.from_numpy(a) for a in (payload, pos, table, due))
-        self._record_status(st.run(self._columns(payload_d, ks), pos_d, table_d, due_d, slots, counts))
+        statuses = []
+        for sh in self._shards:  # one block step a shard, on its device
+            st, k = sh.state, ks[sh.rows]
+            pos, table, due, slots, counts = st.plan(k)
+            if sh.staging is not None:
+                payload_d, pos_d, table_d, due_d = sh.staging.put(payload[sh.rows], pos, table, due)
+            else:
+                payload_d, pos_d, table_d, due_d = (torch.from_numpy(np.ascontiguousarray(a)).to(sh.device)
+                                                    for a in (payload[sh.rows], pos, table, due))
+            statuses.append(st.run(self._columns(payload_d, k), pos_d, table_d, due_d, slots, counts))
+        self._record_status(statuses)
         self._poll()
 
     # -- streaming API ---------------------------------------------------------
@@ -293,11 +306,32 @@ class MultiStreamWTW(BatchedStatusPolling):
 
     def paths(self) -> List[List[tuple]]:
         """Per-stream committed (live, ref) paths, as lists of tuples."""
-        return [list(zip(p[:, 0].tolist(), p[:, 1].tolist())) for p in self._stepper.paths()]
+        return [list(zip(p[:, 0].tolist(), p[:, 1].tolist())) for sh in self._shards for p in sh.state.paths()]
 
     def pointers(self) -> List[Tuple[int, int, int]]:
         """Per-stream (chroma_ptr, live_ptr, ref_ptr)."""
-        return self._stepper.pointers()
+        return [p for sh in self._shards for p in sh.state.pointers()]
+
+    # -- the state as one batch (checkpoints) ----------------------------------
+
+    @property
+    def _stepper(self):
+        """The block step's state of every stream in stream order: the one
+        shard's ``BlockStepper`` itself, or (a mesh) its tensors ``ref``,
+        ``ref_ids``, ``live``, ``px``, ``py`` and ``sc`` with the shards'
+        rows gathered onto the first device (copies: write through
+        :meth:`_load_state`)."""
+        if len(self._shards) == 1:
+            return self._shards[0].state
+        parts = [sh.state for sh in self._shards]
+        rows = {n: gather_rows([getattr(p, n) for p in parts]) for n in ("ref_ids", "live", "px", "py", "sc")}
+        return SimpleNamespace(ref=parts[0].ref, **rows)
+
+    def _load_state(self, live: torch.Tensor, px: torch.Tensor, py: torch.Tensor, sc: torch.Tensor) -> None:
+        """Load stream-ordered (B, ...) state (``BlockStepper.set_state``'s
+        layout) into every shard, row slice by row slice."""
+        for sh in self._shards:
+            sh.state.set_state(live[sh.rows], px[sh.rows], py[sh.rows], sc[sh.rows])
 
 
 class FusedMultiStreamWTW(DeltaPathDrain, BatchedStatusPolling):
@@ -322,20 +356,22 @@ class FusedMultiStreamWTW(DeltaPathDrain, BatchedStatusPolling):
     rows in the kernel is later work (ROADMAP.md).
 
     The positional order is the JAX engine's.  ``interpret`` is recorded
-    and otherwise ignored (the device decides); ``mesh`` must be None;
-    ``device`` is where the state lives and the kernel runs: a CUDA device
-    launches the kernel, ``"cpu"`` runs its plain version."""
+    and otherwise ignored (the device decides); ``device`` is where the
+    state lives and the kernel runs: a CUDA device launches the kernel,
+    ``"cpu"`` runs its plain version.  ``mesh`` (B divisible by its size;
+    its entries decide the devices) launches the kernel once a shard, a
+    shared reference held once a device, mixed ones padded to the batch's
+    longest."""
 
-    def __init__(self, refs: Sequence, params, k_block: int = 8, mesh=None, transfer_dtype: str = "auto",
-                 ref_chromas: Optional[Sequence] = None, interpret: bool = False, *, device="cuda"):
-        if mesh is not None:
-            raise NotImplementedError("mesh=: stream sharding over several cards is not ported yet "
-                                      "(ROADMAP Queue 1 item 9)")
-        self.mesh = None
+    def __init__(self, refs: Sequence, params, k_block: int = 8, mesh: Optional[Mesh] = None,
+                 transfer_dtype: str = "auto", ref_chromas: Optional[Sequence] = None, interpret: bool = False, *,
+                 device="cuda"):
+        self.mesh = mesh
         self.params = WTWParams.from_any(params)
         self.k_block = int(k_block)
         self.interpret = bool(interpret)
-        self.device = torch.device(device)
+        self._shards = shards(mesh, len(refs), device)
+        self.device = self._shards[0].device
         if transfer_dtype not in ("auto", "float32", "int16", "chroma"):
             raise ValueError(f"unknown transfer_dtype {transfer_dtype!r}")
         from real_time_audio_sync_tpu_torch.parallel.transfer import resolve_transfer_mode
@@ -364,20 +400,29 @@ class FusedMultiStreamWTW(DeltaPathDrain, BatchedStatusPolling):
             except ValueError as e:
                 raise ValueError(f"stream {i}: {e}") from None
         self.n_caps = (2 * self.ms).astype(np.int32)  # per-stream live capacity (wtw.py:52)
-        self._state = wtw_insert.new_multi_state(chromas, self.n_caps)
+        self._shared_ref = len({id(c) for c in chromas}) == 1
         self._lens = np.stack([self.ms, self.n_caps, np.zeros(self.b, np.int32)], axis=1)  # [m, n_cap, n_valid]
         self._delta_len = wtw_insert.delta_width(self._w, self._hop_frames, self.k_block)
-        self._deltas: list = []  # (status, dx, dy) (B, 1, X) views of a launch's rows, or folded stacks
+        self._span_len = (self.k_block - 1) * self.hop_size + self.fft_len
+        payload = {"chroma": 12 * self.k_block * 4, "int16": self._span_len * 2}.get(self.transfer_dtype,
+                                                                                     self._span_len * 4)
+        # each distinct chroma once a device, the same object for every stream that shares it
+        held = per_device(self._shards, lambda d: {id(c): c.to(d) for c in chromas})
+        ref_rows = {}
+        for sh in self._shards:
+            sh_chromas = [held[sh.device][id(c)] for c in chromas[sh.rows]]
+            st = wtw_insert.new_multi_state(sh_chromas, self.n_caps[sh.rows], m_max=int(self.ms.max()),
+                                            n_cap_max=int(self.n_caps.max()))
+            if st.ref.shape[0] == 1:  # shards on one device read one copy of a shared reference
+                st.ref = ref_rows.setdefault((sh.device, id(sh_chromas[0])), st.ref)
+            sh.state = st
+            if sh.device.type == "cuda":
+                nb = st.batch
+                sh.staging = PinnedStaging(PinnedStaging.nbytes(nb * payload, self._lens[sh.rows].nbytes), sh.device)
         self._reset_host_paths()
 
         self.bufs = [SampleFIFO(self.dtype) for _ in range(self.b)]
         self._stopped = np.zeros(self.b, bool)
-        self._span_len = (self.k_block - 1) * self.hop_size + self.fft_len
-        self._staging = None
-        if self.device.type == "cuda":
-            payload = {"chroma": 12 * self.k_block * 4, "int16": self._span_len * 2}.get(self.transfer_dtype,
-                                                                                         self._span_len * 4)
-            self._staging = PinnedStaging(PinnedStaging.nbytes(self.b * payload, self._lens.nbytes), self.device)
         self._init_batched_polling()
 
     def _ref_chromas(self, refs, ref_chromas) -> List[torch.Tensor]:
@@ -439,18 +484,22 @@ class FusedMultiStreamWTW(DeltaPathDrain, BatchedStatusPolling):
         payload = self._spans(ks)
         lens = self._lens.copy()
         lens[:, 2] = ks
-        if self._staging is not None:
-            payload_t, lens_t = self._staging.put(payload, lens)
-        else:
-            payload_t, lens_t = torch.from_numpy(payload).to(self.device), torch.from_numpy(lens).to(self.device)
-        cols = self._columns(payload_t, ks)
-        # a fresh row block per launch: it stays pending until paths() drains it
-        rows = torch.empty((self.b, self._delta_len), dtype=torch.int32, device=self.device)
-        wtw_insert.multi_wtw_insert_block(self._state, cols, lens_t, self._w, self._hop_frames, self.k_block, rows)
-        views = wtw_insert.delta_views(rows[:, None])  # (B, 1, X) each: the JAX engine's row-shaped layout
-        self._deltas.append(views)
-        fold_delta_tail(self._deltas, _DELTA_STACK)
-        self._record_status(views[0])
+        statuses = []
+        for sh in self._shards:  # one launch a shard, on its device
+            if sh.staging is not None:
+                payload_t, lens_t = sh.staging.put(payload[sh.rows], lens[sh.rows])
+            else:
+                payload_t, lens_t = (torch.from_numpy(np.ascontiguousarray(a)).to(sh.device)
+                                     for a in (payload[sh.rows], lens[sh.rows]))
+            cols = self._columns(payload_t, ks[sh.rows])
+            # a fresh row block per launch: it stays pending until paths() drains it
+            rows = torch.empty((cols.shape[0], self._delta_len), dtype=torch.int32, device=sh.device)
+            wtw_insert.multi_wtw_insert_block(sh.state, cols, lens_t, self._w, self._hop_frames, self.k_block, rows)
+            views = wtw_insert.delta_views(rows[:, None])  # (B, 1, X) each: the JAX engine's row-shaped layout
+            sh.deltas.append(views)
+            fold_delta_tail(sh.deltas, _DELTA_STACK)
+            statuses.append(views[0])
+        self._record_status(statuses)
         self._poll()
 
     # -- streaming API ---------------------------------------------------------
@@ -512,5 +561,19 @@ class FusedMultiStreamWTW(DeltaPathDrain, BatchedStatusPolling):
 
     def pointers(self) -> List[Tuple[int, int, int]]:
         """Per-stream (chroma_ptr, live_ptr, ref_ptr)."""
-        sc = self._state.scalars.cpu().numpy()
+        sc = np.concatenate([sh.state.scalars.cpu().numpy() for sh in self._shards])
         return [(int(s[WS_CHROMA]), int(s[WS_LIVE]), int(s[WS_REF])) for s in sc]
+
+    @property
+    def _state(self) -> wtw_insert.MultiWTWState:
+        """Every stream's state in stream order: the one shard's state
+        itself, or (a mesh) the shards' rows gathered onto the first device,
+        the reference rows one a stream unless one reference serves all (a
+        copy)."""
+        if len(self._shards) == 1:
+            return self._shards[0].state
+        parts = [sh.state for sh in self._shards]
+        ref = (parts[0].ref if self._shared_ref else
+               gather_rows([p.ref.expand(p.batch, -1, -1) for p in parts]))
+        return wtw_insert.MultiWTWState(ref=ref, live=gather_rows([p.live for p in parts]),
+                                        scalars=gather_rows([p.scalars for p in parts]))

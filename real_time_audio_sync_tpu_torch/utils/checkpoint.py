@@ -205,7 +205,9 @@ def save_multi_stream_state(fms, path: str) -> None:
     first (dispatches queued columns, waits for in-flight launches), so the
     snapshot is a consistent frontier across every stream.  The windowed
     layout snapshots the JAX follower's sliding live windows plus the
-    per-stream host paths (delta rows drained first)."""
+    per-stream host paths (delta rows drained first).  A sharded follower
+    writes its streams in stream order, so the file does not depend on
+    the mesh."""
     fms.flush()
     common = dict(
         ref_t=_multi_ref_t(fms),
@@ -227,7 +229,9 @@ def save_multi_stream_state(fms, path: str) -> None:
 
 def load_multi_stream_state(fms, path: str) -> None:
     """Restore a snapshot into a compatibly-constructed follower (same
-    references, params, k_block and stream count)."""
+    references, params, k_block and stream count; any mesh: the
+    stream-ordered arrays are split onto the follower's shards, as JAX's
+    loader re-shards them, checkpoint.py:196-223)."""
     data = np.load(path)
     ck_long = bool(int(data["long_ref"])) if "long_ref" in data.files else False
     if ck_long != fms.long_ref:
@@ -240,22 +244,17 @@ def load_multi_stream_state(fms, path: str) -> None:
                 f"checkpoint {field} {int(data[field])} != engine {field} {want}")
     empty = [np.zeros((0, 2), np.int32)] * fms.b
     _check_shapes(data, {k: v.shape for k, v in _multi_arrays(fms, empty).items()})
-    st = fms._state
     if ck_long:
         lens = data["host_path_lens"].astype(np.int64)
         paths = np.split(data["host_paths"].astype(np.int32).reshape(-1, 2), np.cumsum(lens)[:-1])
         window, live, sc, paths = convert.multi_long_state_from_jax(
             data["w"], data["live_win"], data["scalars"], paths, c=fms.cfg.c, ref_lens=fms.ref_lens, f=fms.f)
-        fms._deltas.clear()
         fms._reset_host_paths(paths)
+        fms._load_state(window=window, live=live, scalars=sc)
     else:
         window, live, px, py, sc = convert.multi_otw_state_from_jax(
             *(data[n] for n in ("w", "live_t", "path_x", "path_y", "scalars")), c=fms.cfg.c, n_max=fms.n_max, f=fms.f)
-        st.path_x.copy_(px)
-        st.path_y.copy_(py)
-    st.window.copy_(window)
-    st.live.copy_(live)
-    st.scalars.copy_(sc)
+        fms._load_state(window=window, live=live, path_x=px, path_y=py, scalars=sc)
     fms._stopped = data["stopped"].astype(bool)
     fms._last_points = data["last_points"].astype(np.int64)
     # no queued columns or in-flight work survives a restore
@@ -279,7 +278,8 @@ def save_multi_wtw_state(ms, path: str) -> None:
     """Snapshot a :class:`~real_time_audio_sync_tpu_torch.parallel.
     wtw_serving.MultiStreamWTW`: the live chromagrams, paths and scalar
     state on the card plus every stream's host sample FIFO.  Flushes first
-    so the snapshot is a consistent frontier."""
+    so the snapshot is a consistent frontier; a sharded engine writes its
+    streams in stream order."""
     ms.flush()
     st = ms._stepper
     live_dev, px, py, sc = convert.multi_async_wtw_state_to_jax(st.live, st.px, st.py, st.sc)
@@ -300,7 +300,8 @@ def save_multi_wtw_state(ms, path: str) -> None:
 
 def load_multi_wtw_state(ms, path: str) -> None:
     """Restore a snapshot into a compatibly-constructed MultiStreamWTW
-    (same references, params, k_block, dtype and transfer encoding)."""
+    (same references, params, k_block, dtype and transfer encoding; any
+    mesh, as :func:`load_multi_stream_state`)."""
     data = np.load(path)
     st = ms._stepper
     _check_reference(data["ref_dev"], convert.wtw_refs_to_jax(st.ref, st.ref_ids, ms.ms, ms._shared_ref),
@@ -318,7 +319,7 @@ def load_multi_wtw_state(ms, path: str) -> None:
     names = ("live_dev", "path_x", "path_y", "scalars")
     mine = convert.multi_async_wtw_state_to_jax(st.live, st.px, st.py, st.sc)
     _check_shapes(data, {n: a.shape for n, a in zip(names, mine)})
-    st.set_state(*convert.multi_async_wtw_state_from_jax(*(data[n] for n in names)))
+    ms._load_state(*convert.multi_async_wtw_state_from_jax(*(data[n] for n in names)))
     splits = np.cumsum(data["buf_lens"])[:-1]
     ms.bufs = [SampleFIFO.from_array(a, ms.dtype) for a in np.split(data["buf_cat"], splits)]
     ms._stopped = data["stopped"].astype(bool)

@@ -31,6 +31,7 @@ from real_time_audio_sync_tpu.features import chroma as jchroma  # noqa: E402
 from real_time_audio_sync_tpu.parallel.serving import MultiStreamFollower as JMulti  # noqa: E402
 from real_time_audio_sync_tpu.streaming.runtime import ScoreFollower as JFollower  # noqa: E402
 from real_time_audio_sync_tpu_torch import MultiStreamFollower, OnlineTimeWarping  # noqa: E402
+from real_time_audio_sync_tpu_torch.parallel import corpus_mesh  # noqa: E402
 from real_time_audio_sync_tpu_torch.eval import corpus as tcorpus, synthetic  # noqa: E402
 from real_time_audio_sync_tpu_torch.features import chroma as tchroma  # noqa: E402
 from real_time_audio_sync_tpu_torch.ops import otw_insert, otw_set_live  # noqa: E402
@@ -222,8 +223,10 @@ def test_multistream_matches_jax_and_solo():
 
 def test_multistream_contract():
     refs = [_make_pair(np.random.default_rng(1), n_ref=n)[0] for n in (20, 30)]
-    with pytest.raises(NotImplementedError, match="item 9"):
-        MultiStreamFollower(refs, PARAMS, mesh=object(), device="cpu")
+    mesh = corpus_mesh(2, device="cpu")
+    assert MultiStreamFollower(refs, PARAMS, mesh=mesh, device="cpu").mesh is mesh
+    with pytest.raises(ValueError, match="divisible"):
+        MultiStreamFollower(refs + refs[:1], PARAMS, mesh=corpus_mesh(8, device="cpu"), device="cpu")
     with pytest.raises(ValueError, match="one band wide"):
         MultiStreamFollower([refs[0][:, :5], refs[1]], PARAMS, device="cpu")
     ms = MultiStreamFollower(refs, PARAMS, device="cpu")

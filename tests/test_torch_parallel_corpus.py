@@ -4,10 +4,11 @@ kernel's plain version, against the JAX package's functions (its Pallas
 kernel in interpret mode, its dense scan on XLA), on the cases of
 tests/test_parallel.py:24,35,343,600.
 
-Tolerance: paths equal exactly; mean path lengths equal within float32
-rounding (``pytest.approx``: the two packages' means are one float32
-division apart).  The pairs carry feature noise, so no decision rests on
-an exact tie."""
+Tolerance: none.  Paths equal exactly, and so do mean path lengths: the
+port takes JAX's arithmetic, the float32 sum times float32(1/B), and on
+JAX's long-pair route the float64 mean rounded to float32 (against which
+the old port's float32 division was one ulp off on the seed-11 pairs).
+The pairs carry feature noise, so no decision rests on an exact tie."""
 
 import numpy as np
 import pytest
@@ -16,7 +17,7 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
 from real_time_audio_sync_tpu.parallel import corpus as jcorpus  # noqa: E402
-from real_time_audio_sync_tpu_torch.parallel import batched_set_live, pad_pairs  # noqa: E402
+from real_time_audio_sync_tpu_torch.parallel import batched_set_live, corpus_mesh, pad_pairs  # noqa: E402
 
 from tests.test_online import _make_pair  # noqa: E402
 
@@ -69,7 +70,8 @@ def test_banded_equals_jax_banded_and_the_port_dense():
     _assert_paths(banded, jax_paths)
     _assert_paths(dense, jax_paths)
     assert mean_b.dtype == torch.float32 and mean_b.ndim == 0 and mean_b.device.type == "cpu"
-    assert float(mean_b) == float(mean_d) == pytest.approx(float(jax_mean))
+    assert float(mean_b) == float(mean_d) == float(jax_mean)
+    assert mean_b.item() == np.float32(32.333336)  # 97 × float32(1/3), where 97 / 3 rounds to 32.333332
 
 
 @pytest.mark.parametrize("backend", ["banded", "dense"])
@@ -86,7 +88,7 @@ def test_float64_runs_the_dense_scan_and_equals_jax(backend):
     got, mean = batched_set_live(r, l, rl, ll, params, dtype=np.float64, backend=backend, device="cpu")
     want, jax_mean = jcorpus.batched_set_live(r, l, rl, ll, params, dtype=np.float64, backend="dense")
     _assert_paths(got, want)
-    assert float(mean) == pytest.approx(float(jax_mean))
+    assert float(mean) == float(jax_mean)
     for (ref, live), g in zip(pairs, got):
         eng = OnlineTimeWarping(ref, params, dtype=np.float64, device="cpu")
         eng.set_live(live)
@@ -107,10 +109,34 @@ def test_long_pairs_equal_jax_delegated_route(monkeypatch):
     assert float(mean) == pytest.approx(float(mean_j))
 
 
+def test_long_route_mean_equals_jax(monkeypatch):
+    """tests/test_parallel.py:600, with both packages' long-pair thresholds
+    lowered to 0: JAX's long route takes the float64 mean of the lengths,
+    and the port's mean is that value rounded to float32 (JAX returns the
+    float64 itself under x64)."""
+    import real_time_audio_sync_tpu.ops.pallas_otw as po
+    from real_time_audio_sync_tpu_torch.parallel import corpus as tcorpus
+
+    r, l, rl, ll = _pairs(11)
+    short, short_mean = batched_set_live(r, l, rl, ll, PARAMS, device="cpu")
+    monkeypatch.setattr(po, "_SET_LIVE_LONG_N", 0)
+    monkeypatch.setattr(tcorpus, "_SET_LIVE_LONG_N", 0)
+    want, jax_mean = jcorpus.batched_set_live(r, l, rl, ll, PARAMS, backend="banded")
+    got, mean = batched_set_live(r, l, rl, ll, PARAMS, device="cpu")
+    _assert_paths(got, want)
+    assert mean.dtype == torch.float32 and mean.ndim == 0
+    assert mean.item() == np.float32(jax_mean) == np.float32(97 / 3)
+    assert short_mean.item() != mean.item()  # the two routes' arithmetic part by an ulp here
+
+
 def test_mesh_and_unknown_backend_raise():
     r, l, rl, ll = _pairs(5, n=2)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        batched_set_live(r, l, rl, ll, PARAMS, mesh=object(), device="cpu")
+    want, want_mean = batched_set_live(r, l, rl, ll, PARAMS, device="cpu")
+    got, mean = batched_set_live(r, l, rl, ll, PARAMS, mesh=corpus_mesh(2, device="cpu"), device="cpu")
+    _assert_paths(got, want)
+    assert float(mean) == float(want_mean)
+    with pytest.raises(ValueError, match="divisible"):
+        batched_set_live(*_pairs(5, n=3), PARAMS, mesh=corpus_mesh(8, device="cpu"), device="cpu")
     with pytest.raises(ValueError, match="unknown backend 'sparse'; choose 'banded' or 'dense'"):
         batched_set_live(r, l, rl, ll, PARAMS, backend="sparse", device="cpu")
     with pytest.raises(ValueError, match="unknown backend"):

@@ -12,7 +12,7 @@ torch.set_num_threads(1)
 
 from real_time_audio_sync_tpu.parallel import FusedMultiStreamFollower as JaxFollower  # noqa: E402
 from real_time_audio_sync_tpu_torch.models.fused_streaming import FusedStreamingEngine  # noqa: E402
-from real_time_audio_sync_tpu_torch.parallel import FusedMultiStreamFollower  # noqa: E402
+from real_time_audio_sync_tpu_torch.parallel import FusedMultiStreamFollower, corpus_mesh  # noqa: E402
 from real_time_audio_sync_tpu_torch.parallel.polling import BatchedStatusPolling  # noqa: E402
 
 from tests.test_online import _make_pair, _unit_cols  # noqa: E402
@@ -367,8 +367,10 @@ def test_serving_feed_past_queue_capacity():
 def test_serving_rejects_mesh_and_checks_its_arguments():
     rng = np.random.default_rng(5)
     ref, _ = _make_pair(rng, n_ref=32, stretch=1.0)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        FusedMultiStreamFollower(ref, PARAMS, 2, None, 8, False, object(), device="cpu")
+    mesh = corpus_mesh(2, device="cpu")
+    assert FusedMultiStreamFollower(ref, PARAMS, 2, None, 8, False, mesh, device="cpu").mesh is mesh
+    with pytest.raises(ValueError, match="divisible"):
+        _port(ref, n_streams=3, mesh=corpus_mesh(8, device="cpu"))
     with pytest.raises(ValueError, match="n_streams"):
         _port(ref)
     with pytest.raises(ValueError, match="n_streams"):

@@ -22,7 +22,7 @@ from real_time_audio_sync_tpu_torch.models import AsyncWTW  # noqa: E402
 from real_time_audio_sync_tpu_torch.models.wtw import SampleFIFO  # noqa: E402
 from real_time_audio_sync_tpu_torch.models.wtw_async import host_chroma_block  # noqa: E402
 from real_time_audio_sync_tpu_torch.ops import wavefront  # noqa: E402
-from real_time_audio_sync_tpu_torch.parallel import MultiStreamWTW  # noqa: E402
+from real_time_audio_sync_tpu_torch.parallel import MultiStreamWTW, corpus_mesh  # noqa: E402
 from real_time_audio_sync_tpu_torch.utils import convert  # noqa: E402
 
 P3 = {"fft_len": 4096, "hop_size": 2048, "dtw_win_size": 4096 * 3, "dtw_hop_size": 2048 * 3}
@@ -171,8 +171,8 @@ def test_matches_jax_on_shared_features():
 
 
 def test_validation_and_contract():
-    """tests/test_wtw_serving.py:84-92 and :319-327: ``mesh=`` raises (item
-    9), a wrong buffer count, no stream, a ``ref_chromas`` count that does
+    """tests/test_wtw_serving.py:84-92 and :319-327: ``mesh=`` takes a mesh
+    and 3 streams on 8 entries raise "divisible"; a wrong buffer count, no stream, a ``ref_chromas`` count that does
     not match, a short reference and a bad transfer mode raise; JAX's
     attributes."""
     refs, _ = _noise(6, 3, n=1)
@@ -180,8 +180,10 @@ def test_validation_and_contract():
     assert (ms.b, ms.k_block, ms.mesh, ms.dtype, ms.transfer_dtype) == (1, 8, None, np.dtype(np.float32), "float32")
     assert list(ms.n_caps) == list(2 * ms.ms) and len(ms.bufs) == 1
     assert _multi(refs, transfer_dtype="auto").transfer_dtype == "float32"  # no link to probe on the CPU
-    with pytest.raises(NotImplementedError, match="item 9"):
-        _multi(refs, mesh=object())
+    mesh = corpus_mesh(1, device="cpu")
+    assert _multi(refs, mesh=mesh).mesh is mesh
+    with pytest.raises(ValueError, match="divisible"):
+        _multi(refs * 3, mesh=corpus_mesh(8, device="cpu"))
     with pytest.raises(ValueError, match="expected 1 buffers"):
         ms.insert([np.zeros(100), np.zeros(100)])
     with pytest.raises(ValueError, match="at least one stream"):

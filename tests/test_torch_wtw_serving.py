@@ -30,7 +30,7 @@ from real_time_audio_sync_tpu_torch.eval import corpus as tcorpus, synthetic  # 
 from real_time_audio_sync_tpu_torch.features.chroma import chroma_frames_tiled, chroma_spans_tiled, frame_span  # noqa: E402
 from real_time_audio_sync_tpu_torch.models import FusedWTW  # noqa: E402
 from real_time_audio_sync_tpu_torch.models.wtw import SampleFIFO  # noqa: E402
-from real_time_audio_sync_tpu_torch.parallel import FusedMultiStreamWTW, MultiStreamWTW  # noqa: E402
+from real_time_audio_sync_tpu_torch.parallel import FusedMultiStreamWTW, MultiStreamWTW, corpus_mesh  # noqa: E402
 from real_time_audio_sync_tpu_torch.utils import convert  # noqa: E402
 
 from tests.test_pallas_wtw import WP, _aligned_chunks, _run, _synth  # noqa: E402
@@ -143,8 +143,9 @@ def test_int16_spans_give_the_float32_path():
 
 
 def test_contract_and_what_raises():
-    """JAX's positional order and attributes; ``mesh=``, windows above 128
-    frames, no stream, a ``ref_chromas`` count that does not match, a
+    """JAX's positional order and attributes; ``mesh=`` takes a mesh and 3
+    streams on 8 entries raise "divisible"; windows above 128 frames, no
+    stream, a ``ref_chromas`` count that does not match, a
     reference shorter than a window and a bad transfer mode raise."""
     ref, _ = _synth(seed=6, ref_s=8)
     short, _ = _synth(seed=6, ref_s=1)
@@ -152,8 +153,10 @@ def test_contract_and_what_raises():
     assert (ms.k_block, ms.transfer_dtype, ms.interpret, ms.mesh, ms.b, ms.f) == (4, "int16", True, None, 2, 12)
     assert ms.dtype == np.float32 and list(ms.n_caps) == list(2 * ms.ms) and len(ms.bufs) == 2
     assert _multi([ref], transfer_dtype="auto").transfer_dtype == "float32"  # no link to probe on the CPU
-    with pytest.raises(NotImplementedError, match="item 9"):
-        _multi([ref], mesh=object())
+    mesh = corpus_mesh(2, device="cpu")
+    assert _multi([ref, ref], mesh=mesh).mesh is mesh
+    with pytest.raises(ValueError, match="divisible"):
+        _multi([ref] * 3, mesh=corpus_mesh(8, device="cpu"))
     with pytest.raises(ValueError, match="use MultiStreamWTW"):
         FusedMultiStreamWTW([ref], dict(WP, dtw_win_size=4096 * 80), device="cpu")
     with pytest.raises(ValueError, match="at least one stream"):
