@@ -96,11 +96,12 @@ Phases, each raising on failure (the process then exits non-zero):
    reference (~39 minutes, ~25,000 frames; beat CSVs joined) and their
    ``_01`` recordings, in the same order, as the live performance, through
    ``ScoreFollower(ref, engine, PARAMS, fused=True, device="cuda")`` in
-   2048-sample buffers for "otw" and "livenote_v2": the engine must choose
+   2048-sample buffers for "otw" and "livenote_v2", over the live
+   recording's first ``CONCERT_FOLLOW_HOPS`` hops: the engine must choose
    the long-reference layout by itself, its path must equal a
    ``long_ref=False`` engine's on the same columns, point for point, and
    begin with the plain version's in the long layout (a CPU engine) over
-   the first 6,000 hops; prints
+   the first 3,000 hops (``PLAIN_CONCERT_HOPS``); prints
    the real-time factor, the launches read from the counters, the pending
    delta entries a path read drains (one device-to-host copy each) and their
    bytes, and the device bytes per stream in each layout;
@@ -292,6 +293,33 @@ Phases, each raising on failure (the process then exits non-zero):
    loaded into an unsharded one resumes to the uninterrupted path, both
    layouts.
 
+17. the live-follower examples (``real_time_audio_sync_tpu_torch/examples``;
+   kernels #1, #4 and #7/#8 solo and batched, reached from the scripts
+   users start with) —
+   (a) ``live_demo.main`` in process on phase 4's pair at full length,
+   three ways: ``--fused`` (#1), ``--fused --tile 2`` (a 6,236-frame
+   reference, the long layout, #4) and ``--engine wtw_async`` (w = 20,
+   #7/#8 over a batch); (b) the non-fused engines ``otw``, ``livenote``,
+   ``livenote_v2`` (no hand-written kernel) and ``wtw`` (the host WTW,
+   #7/#8 solo) on the short synthetic ``steady`` pair: each field log
+   equals the path of the follower the demo builds, made directly on the
+   card and fed the same buffers (for ``--fused``, phase 4's otw
+   follower); wall, ms a hop, the demo's dispatch p50/p99 and each
+   kernel's launches from the counters;
+   (c) ``python -m real_time_audio_sync_tpu_torch.examples.live_demo
+   --fused --out-dir DIR`` on ``steady`` as a process, started beside (a)
+   (field log == the direct follower's, ``click_track.wav`` over 10 KB),
+   then with ``--realtime`` after (d), alone on the card (its drift and
+   staleness lines);
+   (d) ``heatmap_overlay.wav_costs`` (the script's alignment) on the card
+   equals ``overlay_costs`` on the CPU on the same chroma (accumulated cost
+   and paths, tolerance 0); ``heatmap_overlay.main`` with (c)'s field log
+   writes a PNG over 10 KB where matplotlib is installed, and elsewhere
+   stops with ``ModuleNotFoundError`` before aligning;
+   (e) ``python -m real_time_audio_sync_tpu_torch.examples.mic_smoke`` as
+   a process (started beside (a)): no audio backend, so exit 2 and
+   ``SKIP`` on stderr.
+
 The builds run in parallel (one ``nvcc`` per source).  Then each phase's
 seconds, one JSON line of per-kernel results, and last ``{"ok": true,
 "device": {...}}``.  ``--band-times [TREE]`` only times the two band
@@ -405,6 +433,10 @@ BAND_TIMED_BATCHES = (256, 1024)
 # buffers of the concert follower traced by the profiler (a slice: a trace of
 # every hop holds ~10^6 events)
 TRACE_BUFFERS = 3000
+# hops of the concert's live recording (of 23,339) that phase 9 (b)'s
+# followers take: a cut in depth that bounds the script's time (~25 s a
+# follower uncut); the reference stays whole, so the layout is the long one
+CONCERT_FOLLOW_HOPS = 6000
 # phase 10: the batched kernel's comparison bands (238: the global window),
 # the streams served (bench.py:924-997 sizes serving at 256 to 1,024), the
 # hops of the concert run (a cut that bounds the phase's time), the hops of
@@ -412,8 +444,8 @@ TRACE_BUFFERS = 3000
 # launches
 MULTI_BANDS = (10, 50, 200, 238)
 # hops of the concert that phase 9 (b) runs through the plain version on the
-# CPU (a cut that bounds the script's time; the card runs all of them)
-PLAIN_CONCERT_HOPS = 6000
+# CPU (a cut that bounds the script's time; the card runs CONCERT_FOLLOW_HOPS)
+PLAIN_CONCERT_HOPS = 3000
 SERVING_STREAMS = 256
 CONCERT_HOPS = 4000
 TRACE_HOPS = 600
@@ -516,6 +548,13 @@ RESUME_CPU_COLS = 400
 RESUME_CPU_TAIL = 96
 DENSE_PAIRS = 3
 DENSE_FRAMES = (300, 360)
+# phase 17: the synthetic case (eval/synthetic, 139 hops) of the non-fused
+# engines, the processes and the heatmap (the tensor engines take ~15 ms a
+# hop, too slow for phase 4's pair), and the kernels the examples reach
+EXAMPLES_CASE = "steady"
+EXAMPLES_STEADY_ENGINES = ("otw", "livenote", "livenote_v2", "wtw")
+EXAMPLES_KERNELS = ("otw_insert_block", "otw_insert_block_long", "wavefront_dp", "wavefront_backtrack",
+                    "wavefront_dp_batched", "wavefront_backtrack_batched")
 
 
 def log(msg: str) -> None:
@@ -784,7 +823,7 @@ def phase_main_path(device, ref_wav: str, live_wav: str):
     audio_s = len(pcm) / fs
     scorer = PathScorer.for_pair(ref_wav, live_wav)
     launches_total = 0
-    timings = {}
+    timings, paths = {}, {}
     for engine in ("otw", "livenote_v2"):
         follower = ScoreFollower(ref_wav, engine, PARAMS, fused=True, device=device)
         eng = follower.engine
@@ -802,6 +841,7 @@ def phase_main_path(device, ref_wav: str, live_wav: str):
         path = np.asarray(follower.path)
         if path.ndim != 2 or path.shape[1] != 2 or len(path) == 0:
             raise AssertionError(f"{engine}: bad path shape {path.shape}")
+        paths[engine] = [tuple(int(v) for v in p) for p in path]
 
         # the same stream through the plain version (CPU engine, same columns)
         cols = hop_columns(buffers, device)
@@ -847,7 +887,7 @@ def phase_main_path(device, ref_wav: str, live_wav: str):
                     f"plain {plain_ms:.4f} ms/launch ({reps} launches each, c={PARAMS['c']}, N={eng.n})")
             fresh = ScoreFollower(ref_wav, engine, PARAMS, fused=True, device=device)
             trace_run(lambda: follow(fresh, buffers), "phase 4 [trace]")
-    return launches_total, timings
+    return launches_total, timings, paths
 
 
 def max_abs_diff(x, y) -> float:
@@ -2109,11 +2149,14 @@ def phase_concert(device, root: str):
     ref_wav, live_wav = render_concert(root)
     pcm, fs = load_wav(live_wav)
     buffers = [pcm[s : s + 2048] for s in range(0, len(pcm), 2048)]
-    audio_s = len(pcm) / fs
+    all_hops = len(buffers) - 1
+    buffers = buffers[: CONCERT_FOLLOW_HOPS + 1]
+    audio_s = sum(len(b) for b in buffers) / fs
     cols = hop_columns(buffers, device)
     scorer = PathScorer.for_pair(ref_wav, live_wav)
     log(f"phase 9 [concert]: reference and live joined from the {len(synthetic.FULL_PIECES)} pieces "
-        f"({audio_s / 60:.1f} min of live audio, {cols.shape[1]} hops), {time.perf_counter() - t0:.1f} s")
+        f"({len(pcm) / fs / 60:.1f} min of live audio, {all_hops} hops; the followers take the first "
+        f"{cols.shape[1]} hops, {audio_s / 60:.1f} min, a cut in depth), {time.perf_counter() - t0:.1f} s")
     launches_read = 0
     for engine in ("otw", "livenote_v2"):
         follower = ScoreFollower(ref_wav, engine, PARAMS, fused=True, device=device)
@@ -4138,7 +4181,7 @@ def field_log_path(log_dir: str):
     """The path of the one field log in ``log_dir``."""
     from real_time_audio_sync_tpu_torch.eval.logs import parse_field_log
 
-    (name,) = os.listdir(log_dir)
+    (name,) = [n for n in os.listdir(log_dir) if n.endswith(".txt")]
     return parse_field_log(os.path.join(log_dir, name)).path
 
 
@@ -4686,6 +4729,226 @@ def phase_mesh(device, root: str, card: str) -> dict:
     return launches
 
 
+def example_counts() -> dict:
+    """Every launch counter of the port's kernels, by kernel-line name (the
+    examples may move only those of ``EXAMPLES_KERNELS``)."""
+    from real_time_audio_sync_tpu_torch.ops import otw_insert, otw_set_live, wavefront, wtw_insert
+
+    return {"otw_insert_block": otw_insert.launches, "otw_insert_block_long": otw_insert.delta_launches,
+            "wavefront_dp": wavefront.dp_launches, "wavefront_backtrack": wavefront.backtrack_launches,
+            "wavefront_dp_batched": wavefront.dp_batched_launches,
+            "wavefront_backtrack_batched": wavefront.backtrack_batched_launches,
+            "otw_multi_insert_block": otw_insert.multi_launches,
+            "otw_multi_insert_block_long": otw_insert.multi_delta_launches,
+            "otw_set_live": otw_set_live.launches, "wtw_insert_block": wtw_insert.launches,
+            "wtw_multi_insert_block": wtw_insert.multi_launches}
+
+
+def reset_example_counts() -> None:
+    from real_time_audio_sync_tpu_torch.ops import otw_insert, otw_set_live, wavefront, wtw_insert
+
+    otw_insert.launches = otw_insert.delta_launches = otw_insert.multi_launches = 0
+    otw_insert.multi_delta_launches = otw_set_live.launches = 0
+    wavefront.dp_launches = wavefront.backtrack_launches = 0
+    wavefront.dp_batched_launches = wavefront.backtrack_batched_launches = 0
+    wtw_insert.launches = wtw_insert.multi_launches = 0
+
+
+def demo_direct_path(engine: str, fused: bool, ref_wav: str, live_wav: str, device):
+    """The path of the follower ``live_demo`` builds, made directly and fed
+    the demo's 2048-sample buffers."""
+    from real_time_audio_sync_tpu_torch.examples.live_demo import WTW_PARAMS
+    from real_time_audio_sync_tpu_torch.streaming import ScoreFollower, SimulatedMic, WTWFollower
+
+    if engine in ("wtw", "wtw_async"):
+        f = WTWFollower(ref_wav, live_wav, params=WTW_PARAMS, engine=engine, device=device)
+    else:
+        f = ScoreFollower(ref_wav, engine, {"c": 50, "max_run_count": 3}, pipelined=True, fused=fused, device=device)
+    f.start()
+    for buf in SimulatedMic(live_wav, buffer_size=2048):
+        f.receive_audio(buf)
+        if f.stopped:
+            break
+    f.stop()
+    return [tuple(int(v) for v in p) for p in f.path]
+
+
+def demo_lines(text: str) -> list:
+    """The demo's summary lines (the display's lines left out)."""
+    keep = ("followed ", "insert dispatch", "max drift", "score-position staleness")
+    return [line for line in text.splitlines() if line.startswith(keep)]
+
+
+def run_demo(flags, ref_wav: str, live_wav: str, out: str, device, card: str, label: str,
+             expect: tuple, tile: int = 1, direct=None) -> dict:
+    """Phase 17 (a)/(b): ``live_demo.main`` in process, the counters set to
+    0 just before and read just after; its field log == the direct
+    follower's (``direct``, when that run was already made); raises unless
+    exactly the kernels of ``expect`` launched.  Returns the launches of the
+    examples' kernels."""
+    import contextlib
+    import io
+
+    import torch
+
+    from real_time_audio_sync_tpu_torch.examples import live_demo
+
+    engine = flags[flags.index("--engine") + 1] if "--engine" in flags else "otw"
+    argv = ["--ref", ref_wav, "--live", live_wav, "--out-dir", out, "--device", str(device), *flags]
+    text = io.StringIO()
+    reset_example_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(text):
+        rc = live_demo.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = example_counts()
+    launched = {name: n for name, n in counts.items() if n}
+    pairs = (counts["wavefront_dp"] == counts["wavefront_backtrack"]
+             and counts["wavefront_dp_batched"] == counts["wavefront_backtrack_batched"])  # a DP, a backtrack
+    if rc != 0 or set(launched) != set(expect) or not pairs:
+        raise AssertionError(f"phase 17 [{label}]: rc {rc}, launches {launched}, expected {expect}")
+    lines = demo_lines(text.getvalue())
+    hops = int(lines[0].split()[1])
+    path = field_log_path(out)
+    if direct is None and tile > 1:
+        with tempfile.TemporaryDirectory(dir=os.path.dirname(out)) as tmp:
+            direct = demo_direct_path(engine, "--fused" in flags, *live_demo.tile_recordings(ref_wav, live_wav, tile, tmp),
+                                      device)
+    elif direct is None:
+        direct = demo_direct_path(engine, "--fused" in flags, ref_wav, live_wav, device)
+    if path != direct or len(path) < hops // 2:
+        raise AssertionError(f"phase 17 [{label}]: the field log ({len(path)} points) != the direct follower's "
+                             f"({len(direct)} points)")
+    log(f"phase 17 [{label}] [{card}]: live_demo.main({' '.join(flags)}) in process: rc 0, {hops} hops in "
+        f"{wall:.2f} s ({wall / hops * 1e3:.3f} ms a hop, display included); field log of {len(path)} points == "
+        f"the direct follower's on the card; launches {launched or 'none (no hand-written kernel)'}")
+    for line in lines:
+        log(f"phase 17 [{label}]:   {line}")
+    return {name: counts[name] for name in EXAMPLES_KERNELS}
+
+
+def run_script(module: str, args, timeout: int = 300):
+    """``python -m module args`` from the checkout: (completed process, wall s)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", module, *args], cwd=os.path.dirname(os.path.abspath(__file__)),
+                          capture_output=True, text=True, timeout=timeout)
+    return proc, time.perf_counter() - t0
+
+
+def phase_examples(device, root: str, card: str, fused_path) -> dict:
+    """Phase 17: the three live-follower example scripts on the card;
+    returns each example kernel's launches over (a) and (b).
+    ``fused_path`` is phase 4's otw follower's path: the direct follower
+    of the demo's ``--fused`` run on the same pair."""
+    import numpy as np
+
+    from real_time_audio_sync_tpu_torch.eval import synthetic
+    from real_time_audio_sync_tpu_torch.examples import heatmap_overlay
+    from real_time_audio_sync_tpu_torch.features.chroma import wav_to_chroma
+
+    out = os.path.join(root, "phase17")
+    synthetic.build_corpus(out, [EXAMPLES_CASE])
+    sref, slive = (os.path.join(out, EXAMPLES_CASE, f"{EXAMPLES_CASE}_0{i}.wav") for i in (0, 1))
+    ref_wav, live_wav = (os.path.join(root, "sonata_allegro", f"sonata_allegro_0{i}.wav") for i in (0, 1))
+    demo = "real_time_audio_sync_tpu_torch.examples.live_demo"
+    # (c)'s first process and (e) beside (a) and (b): both spend their time
+    # starting up on the host; (e) never opens the card
+    pool = concurrent.futures.ThreadPoolExecutor(2)
+    d_c = os.path.join(out, "process")
+    fast_run = pool.submit(run_script, demo, ["--ref", sref, "--live", slive, "--fused", "--out-dir", d_c])
+    mic_run = pool.submit(run_script, "real_time_audio_sync_tpu_torch.examples.mic_smoke", ["--ref", sref])
+
+    total = dict.fromkeys(EXAMPLES_KERNELS, 0)
+    runs = [(("--fused",), ref_wav, live_wav, "a: fused", ("otw_insert_block",), 1, fused_path),
+            (("--fused", "--tile", "2"), ref_wav, live_wav, "a: fused, tile 2", ("otw_insert_block_long",), 2, None),
+            (("--engine", "wtw_async"), ref_wav, live_wav, "a: wtw_async",
+             ("wavefront_dp_batched", "wavefront_backtrack_batched"), 1, None)]
+    runs += [(("--engine", e), sref, slive, f"b: {e}", ("wavefront_dp", "wavefront_backtrack") if e == "wtw" else (),
+              1, None) for e in EXAMPLES_STEADY_ENGINES]
+    for i, (flags, r, l, label, expect, tile, direct) in enumerate(runs):
+        got = run_demo(list(flags), r, l, os.path.join(out, f"demo{i}"), device, card, label, expect, tile, direct)
+        for name in EXAMPLES_KERNELS:
+            total[name] += got[name]
+
+    # (c) as a process (run beside (a) and (b)), then paced at the audio
+    # clock, alone but for (e)'s end
+    direct = demo_direct_path("otw", True, sref, slive, device)
+
+    def check_process(proc, wall, d, tag, note):
+        if proc.returncode != 0:
+            raise AssertionError(f"phase 17 (c) {tag}: live_demo exited {proc.returncode}: {proc.stderr[-3000:]}")
+        click = os.path.getsize(os.path.join(d, "click_track.wav"))
+        path = field_log_path(d)
+        if path != direct or click <= 10_000:
+            raise AssertionError(f"phase 17 (c) {tag}: field log of {len(path)} points (direct {len(direct)}), "
+                                 f"click track {click} B")
+        flags = "--realtime " if tag == "realtime" else ""
+        log(f"phase 17 (c) [{card}]: python -m {demo} --fused {flags}--out-dir DIR on {EXAMPLES_CASE}: exit 0 in "
+            f"{wall:.2f} s as a process ({note}; start-up and the kernel library's load included); field log of "
+            f"{len(path)} points == the direct follower's; click_track.wav {click} B")
+        for line in demo_lines(proc.stdout):
+            log(f"phase 17 (c) {tag}:   {line}")
+
+    check_process(*fast_run.result(), d_c, "as fast as it runs", "started beside (a)")
+    log_c = os.path.join(d_c, next(n for n in os.listdir(d_c) if n.endswith(".txt")))
+
+    # (d) the heatmap's alignment on the card == on the CPU on the same
+    # chroma; the PNG where matplotlib is installed
+    import importlib.util
+
+    reset_example_counts()
+    t0 = time.perf_counter()
+    card_costs = heatmap_overlay.wav_costs(sref, slive, device)
+    card_s = time.perf_counter() - t0
+    launched = {name: n for name, n in example_counts().items() if n}
+    ref_seq, live_seq = wav_to_chroma(sref, device=device), wav_to_chroma(slive, device=device)
+    cpu_costs = heatmap_overlay.overlay_costs(ref_seq.cpu(), live_seq.cpu(), "cpu")
+    if launched:
+        raise AssertionError(f"phase 17 (d): launches {launched}")
+    for name, (acc, path) in card_costs.items():
+        if not (np.array_equal(acc, cpu_costs[name][0]) and np.array_equal(path, cpu_costs[name][1])):
+            raise AssertionError(f"phase 17 (d) [{name}]: the card's set_live differs from the CPU's")
+    log(f"phase 17 (d) [{card}]: heatmap_overlay.wav_costs on the card, {card_s:.2f} s: == overlay_costs on the "
+        f"CPU on the same chroma: " + ", ".join(f"{name} acc {acc.shape} and {len(path)} points"
+                                                for name, (acc, path) in card_costs.items())
+        + "; no hand-written kernel launched")
+    png = os.path.join(out, "overlay.png")
+    argv = ["--ref", sref, "--live", slive, "--field-log", log_c, "--out", png]
+    if importlib.util.find_spec("matplotlib") is None:
+        t0 = time.perf_counter()
+        try:
+            heatmap_overlay.main(argv)
+            raise AssertionError("phase 17 (d): heatmap_overlay.main ran without matplotlib")
+        except ModuleNotFoundError as e:
+            if e.name != "matplotlib":
+                raise
+        log(f"phase 17 (d): matplotlib is not installed on this machine, so heatmap_overlay.main draws nothing here: "
+            f"it stops with ModuleNotFoundError('matplotlib') in {time.perf_counter() - t0:.3f} s, before the "
+            f"alignment (the CPU tests draw the PNG)")
+    else:
+        t0 = time.perf_counter()
+        rc = heatmap_overlay.main(argv)
+        size = os.path.getsize(png)
+        if rc != 0 or size <= 10_000:
+            raise AssertionError(f"phase 17 (d): heatmap_overlay.main rc {rc}, {size} B")
+        log(f"phase 17 (d): heatmap_overlay.main in process: rc 0 in {time.perf_counter() - t0:.2f} s, "
+            f"{size} B PNG")
+
+    d_rt = os.path.join(out, "realtime")
+    check_process(*run_script(demo, ["--ref", sref, "--live", slive, "--fused", "--realtime", "--out-dir", d_rt]),
+                  d_rt, "realtime", "alone on the card")
+
+    proc, wall = mic_run.result()
+    pool.shutdown()
+    if proc.returncode != 2 or not proc.stderr.startswith("SKIP: "):
+        raise AssertionError(f"phase 17 (e): mic_smoke exited {proc.returncode}: {proc.stderr[-2000:]}")
+    log(f"phase 17 (e): python -m real_time_audio_sync_tpu_torch.examples.mic_smoke: exit 2 in {wall:.2f} s "
+        f"as a process (started beside (a)): {proc.stderr.strip()}")
+    log(f"phase 17: the examples' launches {total}")
+    return total
+
+
 def ptxas_report(text: str) -> dict:
     """{mangled kernel name: (registers, stack bytes, spill store bytes,
     spill load bytes)} from nvcc's ``--ptxas-options=-v`` output."""
@@ -4820,7 +5083,7 @@ def main() -> int:
 
     with tempfile.TemporaryDirectory() as root:
         ref_wav, live_wav = timed("4", render_piece, root)
-        launches, timings = timed("4", phase_main_path, device, ref_wav, live_wav)
+        launches, timings, main_paths = timed("4", phase_main_path, device, ref_wav, live_wav)
         wf = timed("6", phase_dtw_main_path, device, root)
         sl = timed("8", phase_set_live_main_path, device, root)
         timed("9", phase_delta_vs_plain, device)
@@ -4869,6 +5132,9 @@ def main() -> int:
             warnings.simplefilter("ignore", WTWLongReferenceWarning)
             mesh_launches = timed("16", phase_mesh, device, root, card)
         log(f"phase 16: {phase_s['16']:.1f} s in all")
+        log(card)
+        examples_launches = timed("17", phase_examples, device, root, card, main_paths["otw"])
+        log(f"phase 17: {phase_s['17']:.1f} s in all")
 
     # "ms" is each kernel's device time per launch (profiler; the CUDA-event
     # time when the trace holds none); otw_insert_block's at k_block 8,
@@ -4913,6 +5179,8 @@ def main() -> int:
             kernels[-1]["app"] = app_extra
         if name in mesh_launches:  # phase 16: the launches of the sharded runs (shards x dispatches)
             kernels[-1]["mesh_launches"] = mesh_launches[name]
+        if name in examples_launches:  # phase 17 (a) and (b): the example scripts' launches
+            kernels[-1]["examples_launches"] = examples_launches[name]
     order = sorted(phase_s, key=lambda name: int(name.split("-")[0]))
     log("seconds a phase: " + ", ".join(f"{name} {phase_s[name]:.1f}" for name in order))
     log(f"total {time.perf_counter() - t_start:.1f} s")
